@@ -1,0 +1,2 @@
+# allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
+"""Solver core of the port (counterpart of ``repro.core``)."""

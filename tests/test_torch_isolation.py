@@ -1,0 +1,80 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``;
+importing the whole port pulls in neither JAX nor Triton (Triton is
+imported where a kernel launches); and an entry point asked for the card
+on a host without one raises instead of running on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+CHECKED = PORT_FILES + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_files_exist():
+    assert len(PORT_FILES) >= 20
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "gram_cd.cu").exists()
+
+
+@pytest.mark.parametrize("path", CHECKED, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_reference(path):
+    bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_triton():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT_FILES)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n"
+            "import torch\n"
+            "assert torch.get_float32_matmul_precision() == 'highest'\n"
+            "assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not torch.backends.cudnn.allow_tf32\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("entry", ["estimator", "dataset", "from_reference", "fit"])
+def test_entry_points_raise_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.api import LogisticL1, from_reference
+    from repro_torch.configs.base import GLMConfig
+    from repro_torch.core.dglmnet import fit
+    from repro_torch.data.synthetic import make_glm_dataset
+
+    X = np.zeros((8, 4), np.float32)
+    y = np.ones(8, np.float32)
+    call = {
+        "estimator": lambda: LogisticL1().fit(X, y, 0.1),
+        "dataset": lambda: make_glm_dataset(GLMConfig(num_examples=8, num_features=4),
+                                            np.random.default_rng(0)),
+        "from_reference": lambda: from_reference(np.zeros(4), 0.1),
+        "fit": lambda: fit(X, y, 0.1),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
