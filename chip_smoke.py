@@ -9,7 +9,7 @@ of which fails the run with a non-zero exit:
 2. build -- compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) and the Triton kernel;
 3. kernels -- each kernel against its plain PyTorch version on the card at
-   the main path's shapes (atol = rtol = 1e-5; the NLL to 1e-5 relative),
+   the main paths' shapes (atol = rtol = 1e-5; the NLL to 1e-5 relative),
    ``blocked_cd`` on a tile where modes 0, 1 and 2 all occur, and
    ``blocked_cd`` at B=1 bit-equal to ``gram_cd``;
 4. main path -- ``LogisticL1(...).fit(DenseDesign(X), y, lam)`` at the
@@ -22,8 +22,33 @@ of which fails the run with a non-zero exit:
    fit on the CPU (plain versions): relative objective gap < 1e-4, betas
    within rtol 1e-2 / atol 1e-3; the card fit's synchronising calls, as
    torch's sync debug mode sees them, must equal the engine's count;
-6. times -- each kernel and its plain version (CUDA events, median of 25
-   launches after warm-up, L2 flushed before each), beside its bound.
+6. sparse cell -- webspam-shaped slabs made on the card (252,000 training
+   and 63,000 test rows, p = 2^20 features at webspam's density,
+   ``GLM_WEBSPAM``): ``slab_gram`` and ``slab_spmv`` against their plain
+   versions and the densify oracles at the cell's shapes and on
+   adversarial slabs (duplicate rows, sentinels anywhere with values
+   parked on them, empty features, unsorted slots), each bit-equal
+   across two launches;
+7. sparse path -- ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).fit(
+   SlabDesign(...), y, lam)`` with lam = lambda_max / 16 in both cycle
+   modes: the strategy picks the slab-native solver, status OK, monotone
+   objective, ``slab_gram``, ``slab_spmv``, ``logistic_stats`` and the
+   mode's tile kernel each launched at least once per outer iteration,
+   host syncs = iterations + 2 (one entry read of the slabs' largest
+   row), held-out accuracy through ``decision_function`` on the test
+   slabs, fit wall, ms per iteration and peak memory;
+8. sparse agreement -- an 8192 x 4096 slab fit on the card against the
+   same fit on the CPU, both slab-native, and one ``densify=True`` fit on
+   both: relative objective gaps < 1e-4, and after a fixed 8 iterations
+   (both sides taking the same steps) betas within rtol 1e-2 / atol 1e-3;
+   the slab-native card fit under torch's sync debug mode synchronises
+   only through the engine's door;
+9. times -- each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call (CUDA events, median of 25
+   launches after warm-up, L2 flushed before each), beside its bound;
+10. profile -- device time by kernel (torch.profiler) for one dense fit
+   per cycle mode and a 3-iteration sparse fit; a profile with no device
+   time fails the run.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
@@ -88,6 +113,36 @@ def bound_ms(n_bytes: float, n_flops: float):
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def under_sync_debug(torch, fn):
+    """Run ``fn()`` under torch's sync debug mode; returns its result and
+    the synchronising calls by call site (with one stack each)."""
+    sites, stacks = Counter(), {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            site = f"{Path(filename).name}:{lineno}"
+            sites[site] += 1
+            stacks.setdefault(site, "".join(traceback.format_stack(limit=10)[:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sites, stacks
+
+
+def check_sync_sites(sites, stacks, tag: str):
+    """Fail if anything but the engine's counted door synchronised."""
+    stray = {site: stack for site, stack in stacks.items() if not site.startswith("engine.py:")}
+    for site, stack in stray.items():
+        print(f"[{tag}] synchronising call at {site}:\n{stack}")
+    check(not stray, f"the card fit synchronised outside the engine's host reads: {dict(sites)}")
 
 
 # ---------------------------------------------------------------------------
@@ -299,22 +354,8 @@ def phase_agreement(torch):
     opts = DGLMNETOptions(num_blocks=16, tile=128, max_iters=100)
     torch.cuda.synchronize()
     engine.host_syncs = 0
-    sites, stacks = Counter(), {}
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "called a synchronizing CUDA operation" in str(message):
-            site = f"{Path(filename).name}:{lineno}"
-            sites[site] += 1
-            stacks.setdefault(site, "".join(traceback.format_stack(limit=10)[:-1]))
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            gpu = LogisticL1(opts, device="cuda").fit(DenseDesign(ds.X_train), ds.y_train, lam)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    gpu, sites, stacks = under_sync_debug(torch, lambda: LogisticL1(opts, device="cuda").fit(
+        DenseDesign(ds.X_train), ds.y_train, lam))
     engine_syncs = engine.host_syncs
     beta_gpu = gpu.beta.cpu()
     t0 = time.perf_counter()
@@ -334,13 +375,374 @@ def phase_agreement(torch):
     check(close, "card vs cpu betas disagree beyond rtol 1e-2 / atol 1e-3")
     check(engine_syncs == gpu.n_iters + 1,
           "the engine read the device other than once per iteration plus one fetch")
-    stray = {site: stack for site, stack in stacks.items() if not site.startswith("engine.py:")}
-    for site, stack in stray.items():
-        print(f"[agree] synchronising call at {site}:\n{stack}")
-    check(not stray, f"the card fit synchronised outside the engine's host reads: {dict(sites)}")
+    check_sync_sites(sites, stacks, "agree")
 
 
-def phase_times(torch, gen, errs, launches, card):
+# ---------------------------------------------------------------------------
+# the sparse cell: webspam-shaped slabs made on the card
+# ---------------------------------------------------------------------------
+
+#: features of the sparse cell: webspam's 16.6M cut to 2^20 for the time limit
+WEBSPAM_P = 2 ** 20
+SPARSE_M = 16                          # machines, as benchmarks/table3_timing.py
+SPARSE_OPTS = dict(tile=128, block=16, max_iters=100)
+
+
+def slab_truth(torch, gen, p: int, density: float, dev, snr: float = 3.0):
+    """The reference recipe's sparse ground truth: k_true = p // 20
+    Gaussian coefficients scaled by snr / sqrt(k_true * density)."""
+    k_true = max(4, p // 20)
+    beta = torch.zeros(p, device=dev)
+    idx = torch.randperm(p, generator=gen, device=dev)[:k_true]
+    beta[idx] = torch.randn(k_true, generator=gen, device=dev) * (snr / (k_true * density) ** 0.5)
+    return beta
+
+
+def slab_data(torch, gen, n_rows: int, p: int, density: float, beta_true, dev):
+    """(p, 1, K) by-feature slabs of an n_rows x p matrix with webspam's
+    recipe drawn per feature (a dense mask cannot exist at this width):
+    Binomial(n_rows, density) nonzeros per feature at distinct rows drawn
+    uniformly, sorted and front-packed (sentinel n_rows), Gaussian
+    values; labels from sigmoid(X beta_true) with 5% flipped. Returns
+    (rows, vals, y)."""
+    counts = torch.binomial(torch.full((p,), float(n_rows), device=dev),
+                            torch.full((p,), float(density), device=dev), generator=gen)
+    kc = int(counts.max()) + 8
+    draws = torch.randint(0, n_rows, (p, kc), generator=gen, device=dev, dtype=torch.int32)
+    srt, idx = torch.sort(draws, dim=1)
+    dup = torch.zeros(p, kc, dtype=torch.bool, device=dev)
+    dup.scatter_(1, idx[:, 1:], srt[:, 1:] == srt[:, :-1])
+    del srt, idx
+    # the first `count` distinct draws of each feature, in draw order: a
+    # uniform subset of the rows
+    rank = torch.cumsum((~dup).to(torch.int32), dim=1) - 1
+    keep = torch.logical_and(~dup, rank < counts[:, None])
+    rows = torch.sort(torch.where(keep, draws, n_rows), dim=1).values
+    del draws, dup, rank, keep
+    k = int((rows < n_rows).sum(1).max())
+    rows = rows[:, :k].contiguous()
+    live = rows < n_rows
+    vals = torch.where(live, torch.randn(p, k, generator=gen, device=dev), 0.0)
+    m = torch.zeros(n_rows, dtype=torch.float64, device=dev)
+    m.index_add_(0, rows[live].long(), (vals * beta_true[:, None])[live].double())
+    prob = torch.sigmoid(m.float())
+    y = torch.where(torch.rand(n_rows, generator=gen, device=dev) < prob, 1.0, -1.0)
+    y = torch.where(torch.rand(n_rows, generator=gen, device=dev) < 0.05, -y, y)
+    return rows[:, None, :], vals[:, None, :], y
+
+
+def sparse_cell(torch, dev="cuda", p: int = WEBSPAM_P, seed: int = 2):
+    """GLM_WEBSPAM's example count split 80/20 as make_glm_dataset does
+    (252,000 training and 63,000 test rows) at its density, p features:
+    ((rows, vals, y) train, (rows, vals, y) test)."""
+    from repro_torch.configs.glm import GLM_WEBSPAM
+
+    n_test = int(GLM_WEBSPAM.num_examples * 0.2)
+    n_train = GLM_WEBSPAM.num_examples - n_test
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    beta_true = slab_truth(torch, gen, p, GLM_WEBSPAM.density, dev)
+    train = slab_data(torch, gen, n_train, p, GLM_WEBSPAM.density, beta_true, dev)
+    test = slab_data(torch, gen, n_test, p, GLM_WEBSPAM.density, beta_true, dev)
+    return train, test
+
+
+def adversarial_slab(torch, gen, B: int = 4, t: int = 128, k: int = 40, n: int = 5000):
+    """(B, t, k) slab with duplicate rows within features, sentinels
+    anywhere (several values >= n) carrying nonzero values, empty
+    features, and each feature's slots in random order."""
+    dev = "cuda"
+    rows = torch.randint(0, n, (B, t, k), generator=gen, device=dev, dtype=torch.int32)
+    rows[:, :, 1] = rows[:, :, 0]
+    rows[:, 2, :] = rows[:, 2, :1]
+    sent = torch.rand(B, t, k, generator=gen, device=dev) < 0.3
+    rows = torch.where(sent, n + torch.randint(0, 3, (B, t, k), generator=gen, device=dev,
+                                               dtype=torch.int32), rows)
+    rows[:, 4] = n
+    rows[:, -1] = n + 7
+    vals = torch.randn(B, t, k, generator=gen, device=dev)
+    vals[:, 4] = 5.0
+    shuffle = torch.argsort(torch.rand(B, t, k, generator=gen, device=dev), dim=-1)
+    return rows.gather(-1, shuffle), vals.gather(-1, shuffle)
+
+
+def phase_sparse_kernels(torch, gen, cell):
+    """slab_gram and slab_spmv against their plain versions at the cell's
+    shapes and on adversarial slabs; two launches bit-equal. Returns the
+    errors and the inputs the times phase reuses."""
+    from repro_torch.core.distributed import layout_slabs
+    from repro_torch.kernels import ops, ref, slab_gram, slab_spmv
+    from repro_torch.kernels.slab_spmv import SlabOrder, slab_order
+
+    (rows, vals, y), _ = cell
+    n, p, K = y.shape[0], rows.shape[0], rows.shape[-1]
+    M, T = SPARSE_M, SPARSE_OPTS["tile"]
+    lay = layout_slabs(rows[:, 0], vals[:, 0], M, T)
+    t = lay.rows.shape[1] // 2                      # a tile step in the middle
+    R, V = lay.rows[:, t], lay.vals[:, t]
+    w = 0.05 + 0.2 * torch.rand(n, generator=gen, device="cuda")
+    r = torch.randn(M, n, generator=gen, device="cuda")
+    d = 0.1 * torch.randn(M, T, generator=gen, device="cuda")
+    order = SlabOrder(lay.order.rows_s[:, t], lay.order.perm[:, t])
+    errs = {"slab_gram": 0.0, "slab_spmv": 0.0}
+
+    def hold(name, label, got, plain, oracle=None, again=None):
+        e = max(max_err(a, b) for a, b in zip(got, plain))
+        ok = all(torch.allclose(a, b, rtol=TOL, atol=TOL) for a, b in zip(got, plain))
+        if oracle is not None:
+            e = max(e, max(max_err(a, b) for a, b in zip(got, oracle)))
+            ok = ok and all(torch.allclose(a, b, rtol=TOL, atol=TOL) for a, b in zip(got, oracle))
+        same = again is None or all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"[sparse-kernels] {name} {label}: max abs err {e:.3g}"
+              f"{'' if again is None else ', two launches ' + ('bit-equal' if same else 'DIFFERENT')}"
+              f" -> {'ok' if ok and same else 'MISMATCH'}")
+        check(ok, f"{name} {label} disagrees with its plain version")
+        check(same, f"{name} {label}: two launches differ")
+        errs[name] = max(errs[name], e)
+
+    # slab_gram at a tile step of the cell: (M, T, K) with sorted slots
+    safe, va, wv, cva = ops._sentinel_zeroed(R, V, w, r, n)
+    got = slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n, rows_sorted=True)
+    again = slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n, rows_sorted=True)
+    plain = ref.slab_gram_join(safe, wv, va, cva)
+    torch.cuda.synchronize()
+    hold("slab_gram", f"cell tile M={M} T={T} K={K}", got, plain,
+         oracle=ref.slab_gram_ref(R, V, w, r), again=again)
+    # slab_spmv at the same tile step: r -= X_F d for every block at once
+    got = slab_spmv.slab_spmv_kernel(order, V, d, r.clone(), n_loc=n, sign=-1.0)
+    again = slab_spmv.slab_spmv_kernel(order, V, d, r.clone(), n_loc=n, sign=-1.0)
+    dv = torch.where(R < n, V, 0.0) * d[..., None]
+    plain = r - ref.slab_spmv_scatter(R.clamp_max(n), dv, n)
+    hold("slab_spmv", f"cell residual update M={M} T={T} K={K}", (got,), (plain,),
+         oracle=(r - ref.slab_spmv_ref(R, V, d, n),), again=(again,))
+    # slab_spmv at the margins' shape: (M, p/M, K) per block
+    Rm, Vm = rows[:, 0].reshape(M, p // M, K), vals[:, 0].reshape(M, p // M, K)
+    beta = torch.randn(M, p // M, generator=gen, device="cuda")
+    om = slab_order(Rm)
+    got = slab_spmv.slab_spmv_kernel(om, Vm, beta, torch.zeros(M, n, device="cuda"),
+                                     n_loc=n, sign=1.0)
+    again = slab_spmv.slab_spmv_kernel(om, Vm, beta, torch.zeros(M, n, device="cuda"),
+                                       n_loc=n, sign=1.0)
+    dvm = torch.where(Rm < n, Vm, 0.0) * beta[..., None]
+    hold("slab_spmv", f"cell margins M={M} p/M={p // M} K={K}", (got,),
+         (ref.slab_spmv_scatter(Rm.clamp_max(n), dvm, n),), again=(again,))
+    del om, dvm
+    # adversarial slabs, through the dispatch (slots unsorted: the
+    # wrapper sorts them; the order is built per call)
+    ra, vla = adversarial_slab(torch, gen)
+    na = 5000
+    wa = 0.05 + 0.2 * torch.rand(na, generator=gen, device="cuda")
+    rra = torch.randn(ra.shape[0], na, generator=gen, device="cuda")
+    da = torch.randn(ra.shape[0], ra.shape[1], generator=gen, device="cuda")
+    sa = ops._sentinel_zeroed(ra, vla, wa, rra, na)
+    got = ops.slab_gram(ra, vla, wa, rra)
+    again = ops.slab_gram(ra, vla, wa, rra)
+    hold("slab_gram", "adversarial (duplicates, sentinels with values, empty, unsorted)",
+         got, ref.slab_gram_join(sa[0], sa[2], sa[1], sa[3]),
+         oracle=ref.slab_gram_ref(ra, vla, wa, rra), again=again)
+    got = ops.slab_spmv(ra, vla, da, n_loc=na)
+    again = ops.slab_spmv(ra, vla, da, n_loc=na)
+    dva = torch.where(ra < na, vla, 0.0) * da[..., None]
+    hold("slab_spmv", "adversarial (duplicates, sentinels with values, empty, unsorted)",
+         (got,), (ref.slab_spmv_scatter(ra.clamp_max(na), dva, na),),
+         oracle=(ref.slab_spmv_ref(ra, vla, da, na),), again=(again,))
+    got = ops.slab_residual_update(rra.clone(), ra, vla, da)
+    hold("slab_spmv", "adversarial residual update", (got,),
+         (rra - ref.slab_spmv_scatter(ra.clamp_max(na), dva, na),))
+    inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, safe=safe, wv=wv, va=va,
+                  cva=cva, n=n)
+    del lay
+    return errs, inputs
+
+
+def phase_sparse_path(torch, cell, card):
+    """The by-feature slab solve of the cell on a (1, 16) mesh, both cycle
+    modes."""
+    from repro_torch.api import LogisticL1, SlabDesign, as_design, lambda_max_design, resolve
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    (rows, vals, y), (rt, vt, yt) = cell
+    n, p, K = y.shape[0], rows.shape[0], rows.shape[-1]
+    design = SlabDesign(rows, vals, n)
+    test = SlabDesign(rt, vt, yt.shape[0])
+    nnz = int((rows < n).sum())
+    lam = float(lambda_max_design(design, y)) / 16
+    mesh = make_dev_mesh(1, SPARSE_M)
+    steps = p // (SPARSE_M * SPARSE_OPTS["tile"])
+    print(f"[sparse] webspam-shaped slabs: n_train {n}, n_test {yt.shape[0]}, p {p}, "
+          f"K {K}, nnz {nnz} ({nnz / p:.1f} per feature), "
+          f"{(rows.numel() + vals.numel()) * 4 / 1e9:.2f} GB of training slabs; lam {lam:.4f}; "
+          f"M={SPARSE_M}, {steps} tile steps per outer iteration")
+    launches, fits = {}, {}
+    for mode in ("sequential", "blocked"):
+        opts = DGLMNETOptions(cycle_mode=mode, **SPARSE_OPTS)
+        strat = resolve(as_design(design, mesh=mesh, tile=opts.tile), opts)
+        dense = strat.use_densify(n, K)
+        print(f"[sparse] {mode}: strategy execution={strat.execution} solver={strat.solver} "
+              f"densify={dense} (prefer_slab_gram({n}, {K}) = {ops.prefer_slab_gram(n, K)})")
+        check(strat.execution == "mesh" and strat.solver == "slab" and not dense,
+              f"the strategy did not pick the slab-native solver: {strat}, densify={dense}")
+        est = LogisticL1(opts, mesh=mesh, device="cuda")
+        # warm-up: allocator pools, outside the counts
+        LogisticL1(replace(opts, max_iters=1), mesh=mesh, device="cuda").fit(design, y, lam)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        engine.host_syncs = 0
+        t1 = time.perf_counter()
+        res = est.fit(design, y, lam)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        syncs = engine.host_syncs
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        h = res.objective_history
+        tile_kernel = "gram_cd" if mode == "sequential" else "blocked_cd"
+        scores = est.decision_function(test)
+        acc = float((torch.where(scores >= 0, 1.0, -1.0) == yt).float().mean())
+        print(f"[sparse] {mode}: status {res.status_name}, {res.n_iters} iters, converged "
+              f"{res.converged}, f {res.f:.4f}, nnz {res.nnz}, unit-step share "
+              f"{res.unit_step_frac:.2f}, held-out accuracy {acc:.4f} ({yt.shape[0]} test rows)")
+        print(f"[sparse] {mode}: fit {wall:.3f} s, {wall * 1e3 / res.n_iters:.2f} ms per outer "
+              f"iteration, host syncs {syncs}, launches {counts}, peak device memory "
+              f"{peak:.2f} GB, on {card}")
+        check(res.ok, f"sparse {mode} fit tripped {res.status_name}")
+        check(all(h[i + 1] <= h[i] + 1e-4 * abs(h[i]) for i in range(len(h) - 1)),
+              f"sparse {mode} objective history increases: {h}")
+        check(bool(torch.isfinite(res.beta).all()) and res.beta.shape == (p,),
+              f"sparse {mode} beta is not a finite ({p},) vector")
+        check(bool(torch.isfinite(scores).all()) and scores.shape == (yt.shape[0],),
+              f"sparse {mode} scores are not finite ({yt.shape[0]},)")
+        for name in ("slab_gram", "slab_spmv", "logistic_stats", tile_kernel):
+            check(counts[name] >= res.n_iters,
+                  f"sparse {mode}: {name} launched {counts[name]} times for "
+                  f"{res.n_iters} iterations")
+            launches[name] = launches.get(name, 0) + counts[name]
+        check(syncs == res.n_iters + 2,
+              f"sparse {mode}: {syncs} host reads, expected {res.n_iters} iterations + 1 "
+              f"fetch + 1 entry read")
+        check(acc > 0.5, f"sparse {mode}: held-out accuracy {acc} is not above chance")
+        fits[mode] = (wall, res.n_iters, syncs, peak)
+    return launches, fits, lam
+
+
+def phase_sparse_agreement(torch):
+    """An 8192 x 4096 slab fit on the card against the CPU, slab-native and
+    densify-once: converged fits to a relative objective gap < 1e-4, and
+    fits of a fixed 8 iterations (rel_tol = 0, so both sides take the same
+    steps and only rounding separates them) to the gap and betas within
+    rtol 1e-2 / atol 1e-3. Converged fits are not compared by beta: the
+    stopping rule can end the two sides on different iterations of a
+    slow tail."""
+    from repro_torch.api import LogisticL1, SlabDesign, lambda_max_design
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels.ops import prefer_slab_gram
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    n, p, density = 8192, 4096, 0.0015
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, vals, y = slab_data(torch, gen, n, p, density,
+                              slab_truth(torch, gen, p, density, "cuda"), "cuda")
+    K = rows.shape[-1]
+    check(prefer_slab_gram(n, K), f"agreement slabs too dense: K={K} at n={n}")
+    design = SlabDesign(rows, vals, n)
+    lam = float(lambda_max_design(design, y)) / 16
+    opts = DGLMNETOptions(**SPARSE_OPTS)
+    mesh, cpu_mesh = make_dev_mesh(1, SPARSE_M), make_dev_mesh(1, SPARSE_M, device="cpu")
+    cpu_design, y_cpu = design.to("cpu"), y.cpu()
+    torch.cuda.synchronize()
+    engine.host_syncs = 0
+    gpu, sites, stacks = under_sync_debug(
+        torch, lambda: LogisticL1(opts, mesh=mesh, device="cuda").fit(design, y, lam))
+    engine_syncs = engine.host_syncs
+    print(f"[sparse-agree] card slab-native fit: {engine_syncs} host reads through the "
+          f"engine ({gpu.n_iters} iterations + 1 fetch + 1 entry read); synchronising "
+          f"calls seen by torch, by call site: {dict(sites)}")
+    check(engine_syncs == gpu.n_iters + 2,
+          "the slab fit read the device other than once per iteration, one fetch "
+          "and one entry read")
+    check_sync_sites(sites, stacks, "sparse-agree")
+    fixed = replace(opts, max_iters=8, rel_tol=0.0)
+    for densify in (None, True):
+        label = "densify-once" if densify else "slab-native"
+        for o in (opts, fixed):
+            if densify or o is fixed:
+                gpu = LogisticL1(o, mesh=mesh, device="cuda").fit(design, y, lam,
+                                                                  densify=densify)
+            t0 = time.perf_counter()
+            cpu = LogisticL1(o, mesh=cpu_mesh, device="cpu").fit(cpu_design, y_cpu, lam,
+                                                                 densify=densify)
+            t_cpu = time.perf_counter() - t0
+            beta_gpu = gpu.beta.cpu()
+            gap = abs(gpu.f - cpu.f) / abs(cpu.f)
+            run = "fixed 8 iterations" if o is fixed else "converged"
+            print(f"[sparse-agree] {n}x{p} K={K} {label}, {run}: card f {gpu.f:.6f} "
+                  f"({gpu.n_iters} iters) vs cpu f {cpu.f:.6f} ({cpu.n_iters} iters, "
+                  f"{t_cpu:.1f} s): rel gap {gap:.3g}, max|dbeta| "
+                  f"{max_err(beta_gpu, cpu.beta):.3g}")
+            check(gpu.ok and cpu.ok, f"{label} {run} agreement fits tripped: "
+                  f"{gpu.status_name}, {cpu.status_name}")
+            check(gap < 1e-4, f"{label} {run}: card vs cpu objective gap {gap}")
+            if o is fixed:
+                check(gpu.n_iters == cpu.n_iters == 8,
+                      f"{label}: fixed runs took {gpu.n_iters} and {cpu.n_iters} iterations")
+                check(torch.allclose(beta_gpu, cpu.beta, rtol=1e-2, atol=1e-3),
+                      f"{label}: card vs cpu betas after 8 iterations disagree beyond "
+                      f"rtol 1e-2 / atol 1e-3")
+
+
+def sparse_time_rows(torch, inp):
+    """Rows 4 and 5 of the kernel table: the kernel, its plain version and
+    one PyTorch library call on the inputs of one tile step of the cell."""
+    from repro_torch.kernels import ref, slab_gram, slab_spmv
+
+    R, V, d, r, order, n = inp["R"], inp["V"], inp["d"], inp["r"], inp["order"], inp["n"]
+    safe, wv, va, cva = inp["safe"], inp["wv"], inp["va"], inp["cva"]
+    B, T, K = R.shape
+    live = safe < n
+    # block-diagonal CSR forms of the M tiles: (diag(w) X_F)^T and X_F
+    bi = torch.arange(B, device="cuda")[:, None, None].expand(B, T, K)[live]
+    ex = bi * n + safe[live].long()
+    ft = bi * T + torch.arange(T, device="cuda")[None, :, None].expand(B, T, K)[live]
+    wX_T = torch.sparse_coo_tensor(torch.stack([ft, ex]), wv[live], (B * T, B * n)
+                                   ).coalesce().to_sparse_csr()
+    X_csr = torch.sparse_coo_tensor(torch.stack([ex, ft]), va[live], (B * n, B * T)
+                                    ).coalesce().to_sparse_csr()
+    d_flat = d.reshape(-1).contiguous()
+    # matched slot pairs (the merge join's useful products) and touched rows
+    key = bi * n + safe[live].long()
+    per_row = torch.bincount(key, minlength=B * n)
+    pairs = int((per_row.double() ** 2).sum())
+    touched = int((per_row > 0).sum())
+    n_live = int(live.sum())
+    r_work = r.clone()
+    dv = torch.where(R < n, V, 0.0) * d[..., None]
+    gram_bytes = 4 * 4 * B * T * K + 4 * (B * T * T + B * T)
+    spmv_bytes = 3 * 4 * B * T * K + 4 * B * T + 8 * touched
+    return [
+        ("slab_gram", "cuda", "src/repro_torch/kernels/csrc/slab_gram.cu",
+         "src/repro/kernels/sparse_slab.py:81",
+         lambda: slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n, rows_sorted=True),
+         lambda: ref.slab_gram_join(safe, wv, va, cva),
+         lambda: torch.sparse.mm(wX_T, X_csr),
+         gram_bytes, 2 * pairs + B * T * K,
+         f"match join T^2 K^2 M = {T * T * K * K * B:.3g} compare-FMA; "
+         f"{pairs} matched slot pairs; M={B} T={T} K={K}, {n_live} live slots"),
+        ("slab_spmv", "cuda", "src/repro_torch/kernels/csrc/slab_spmv.cu",
+         "src/repro/kernels/sparse_slab.py:126",
+         lambda: slab_spmv.slab_spmv_kernel(order, V, d, r_work, n_loc=n, sign=-1.0),
+         lambda: r - ref.slab_spmv_scatter(R.clamp_max(n), dv, n),
+         lambda: torch.mv(X_csr, d_flat),
+         spmv_bytes, 2 * n_live,
+         f"r -= X_F d for M={B} blocks of T={T}, K={K}: {n_live} live slots, "
+         f"{touched} rows touched"),
+    ]
+
+
+def phase_times(torch, gen, errs, launches, card, sparse_inputs):
     from repro_torch.core.subproblem import blocked_cycle_modes
     from repro_torch.kernels import blocked_cd, gram_cd, logistic_stats, ref
 
@@ -372,13 +774,17 @@ def phase_times(torch, gen, errs, launches, card):
                                                       modes, lam, block=16),
                  lambda: ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=16),
                  tile_bytes + 4 * M * F + 4 * M * (F // 16), 2 * M * F * F + 10 * M * F))
+    rows = [(*row[:6], None, *row[6:], "") for row in rows] + sparse_time_rows(torch, sparse_inputs)
     table = []
-    for name, route, source, replaces, kern, plain, n_bytes, n_flops in rows:
+    for name, route, source, replaces, kern, plain, library, n_bytes, n_flops, note in rows:
         ms = time_ms(torch, kern, flush)
         plain_ms = time_ms(torch, plain, flush)
+        library_ms = None if library is None else time_ms(torch, library, flush)
         b_ms, b_by = bound_ms(n_bytes, n_flops)
-        print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}) on {card}")
+        print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+              f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}"
+              + (f"; {note}" if note else ""))
         if name == "blocked_cd":
             wrap_ms = time_ms(torch, lambda: blocked_cd.blocked_cd_kernel(
                 G, c, beta, db0, lam, 1e-6, block=16), flush)
@@ -387,7 +793,7 @@ def phase_times(torch, gen, errs, launches, card):
         table.append({"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": launches.get(name, 0),
                       "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
     return table
 
 
@@ -397,55 +803,72 @@ def _kind(name: str) -> str:
         return "logistic_stats kernel"
     if "gram_cd_kernel" in low or "blocked_cd_kernel" in low:
         return "tile CD kernel"
+    if "slab_gram_kernel" in low:
+        return "slab_gram kernel"
+    if "slab_spmv_kernel" in low:
+        return "slab_spmv kernel"
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas", "dot_kernel")):
         return "matmul (Gram, c, residual, margins)"
+    if "sort" in low:
+        return "sorts (slab layout)"
     if "memcpy" in low or "memset" in low:
         return "copies"
-    return "other elementwise/reductions (line search, layout, bookkeeping)"
+    return "other elementwise/reductions (line search, gathers, layout, bookkeeping)"
 
 
-def phase_profile(torch, ds, lam, card):
-    """Device time by kernel for one fit in each cycle mode (torch.profiler)."""
+def profile_fit(torch, label: str, fit, card):
+    """Device time by kernel over one fit (torch.profiler). A profile with
+    no device time fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.api import DenseDesign, LogisticL1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0 and getattr(ev.device_type, "name", "") == "CUDA":
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    check(bool(rows), f"profile {label}: the profiler recorded no device time")
+    busy = sum(r[0] for r in rows)
+    groups = Counter()
+    for ms, _, name in rows:
+        groups[_kind(name)] += ms
+    print(f"[profile] {label}: {res.n_iters} iters, wall {wall_ms:.1f} ms under the "
+          f"profiler, device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.2f}) "
+          f"on {card}")
+    for kind, ms in groups.most_common():
+        print(f"[profile] {label}:   {kind}: {ms:.2f} ms ({ms / busy:.1%} of busy)")
+    for ms, count, name in rows[:10]:
+        print(f"[profile] {label}:     {ms:8.2f} ms {count:6d}x {name[:90]}")
+    for ms, count, name in rows:
+        if _kind(name).endswith(" kernel"):
+            print(f"[profile] {label}: {name[:40]}: {ms / count * 1e3:.1f} us per "
+                  f"launch in the fit ({count} launches)")
+
+
+def phase_profile(torch, ds, lam, cell, sparse_lam, card):
+    """One dense fit per cycle mode and a 3-iteration sparse fit, profiled."""
+    from repro_torch.api import DenseDesign, LogisticL1, SlabDesign
     from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.launch.mesh import make_dev_mesh
 
     for mode in ("sequential", "blocked"):
         est = LogisticL1(DGLMNETOptions(num_blocks=16, tile=128, max_iters=100,
                                         cycle_mode=mode, block=16), device="cuda")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = est.fit(DenseDesign(ds.X_train), ds.y_train, lam)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = getattr(ev, "self_cuda_time_total", 0)
-            if us > 0 and getattr(ev.device_type, "name", "") == "CUDA":
-                rows.append((us / 1e3, ev.count, ev.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        if not rows:
-            print(f"[profile] {mode}: the profiler recorded no device time")
-            continue
-        groups = Counter()
-        for ms, _, name in rows:
-            groups[_kind(name)] += ms
-        print(f"[profile] {mode}: {res.n_iters} iters, wall {wall_ms:.1f} ms under the "
-              f"profiler, device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.2f}) "
-              f"on {card}")
-        for kind, ms in groups.most_common():
-            print(f"[profile] {mode}:   {kind}: {ms:.2f} ms ({ms / busy:.1%} of busy)")
-        for ms, count, name in rows[:10]:
-            print(f"[profile] {mode}:     {ms:8.2f} ms {count:5d}x {name[:90]}")
-        for ms, count, name in rows:
-            if _kind(name) in ("logistic_stats kernel", "tile CD kernel"):
-                print(f"[profile] {mode}: {name[:40]}: {ms / count * 1e3:.1f} us per "
-                      f"launch in the fit ({count} launches)")
+        profile_fit(torch, f"dense {mode}",
+                    lambda: est.fit(DenseDesign(ds.X_train), ds.y_train, lam), card)
+    (rows, vals, y), _ = cell
+    opts = DGLMNETOptions(**dict(SPARSE_OPTS, max_iters=3))
+    est = LogisticL1(opts, mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
+    profile_fit(torch, "sparse sequential (3 iterations)",
+                lambda: est.fit(SlabDesign(rows, vals, y.shape[0]), y, sparse_lam), card)
 
 
 def main() -> int:
@@ -463,15 +886,27 @@ def main() -> int:
     errs = phase_kernels(torch, gen)
     launches, fits, ds, lam = phase_main_path(torch)
     phase_agreement(torch)
-    table = phase_times(torch, gen, errs, launches, card)
+    t0 = time.perf_counter()
+    cell = sparse_cell(torch)
+    torch.cuda.synchronize()
+    print(f"[sparse] cell generated on the card in {time.perf_counter() - t0:.2f} s")
+    sparse_errs, sparse_inputs = phase_sparse_kernels(torch, gen, cell)
+    errs.update(sparse_errs)
+    sparse_launches, sparse_fits, sparse_lam = phase_sparse_path(torch, cell, card)
+    for name, count in sparse_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    phase_sparse_agreement(torch)
+    table = phase_times(torch, gen, errs, launches, card, sparse_inputs)
+    del sparse_inputs
     for mode, (wall, wall2, iters, syncs) in fits.items():
         print(f"[times] fit {mode}: {wall:.3f} s whole fit (again {wall2:.3f} s), "
               f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
               f"{syncs} host syncs, on {card}")
-    try:
-        phase_profile(torch, ds, lam, card)
-    except Exception as exc:       # instrumentation only, not a checked phase
-        print(f"[profile] failed: {exc!r}")
+    for mode, (wall, iters, syncs, peak) in sparse_fits.items():
+        print(f"[times] sparse fit {mode}: {wall:.3f} s whole fit, "
+              f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
+              f"{syncs} host syncs, {peak:.2f} GB peak, on {card}")
+    phase_profile(torch, ds, lam, cell, sparse_lam, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -1,11 +1,23 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Strategy resolution, the counterpart of ``repro/api/strategy.py``:
-the one place (design layout, options) maps to an execution plan. Only
-the local dense cell is ported."""
+the one place (design layout, mesh, options) maps to an execution plan.
+
+* local vs mesh comes from the design (:class:`ShardedDesign` or not);
+* dense vs slab subproblems from the layout: a local slab design
+  densifies once and rides the dense solver, a slab design on a mesh
+  gets the by-feature slab solver, whose per-solve densify decision is
+  :meth:`Strategy.use_densify`;
+* ``cycle_mode="auto"`` resolves to a concrete mode here.
+
+The screened path's capacity quantum (``cap_tile``) and slab residency
+(``device_budget_bytes``) are not ported yet.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
+from repro_torch.api.design import ShardedDesign
 from repro_torch.core.dglmnet import DGLMNETOptions
 
 
@@ -13,9 +25,20 @@ from repro_torch.core.dglmnet import DGLMNETOptions
 class Strategy:
     """Resolved execution plan for one solve."""
 
-    execution: str                  # "local" (the mesh is not ported yet)
-    solver: str                     # "dense" (slab solvers are not ported yet)
+    execution: str                  # "local" | "mesh"
+    solver: str                     # "dense" | "slab"
     opts: DGLMNETOptions            # cycle_mode resolved to a concrete mode
+    densify: Optional[bool] = None  # slab solver: force/forbid densify-once
+
+    def use_densify(self, n_loc: int, k: int) -> bool:
+        """Per-solve densify decision for the slab solver: the explicit
+        override wins, else the nnz-density heuristic
+        (``kernels.ops.prefer_slab_gram``) at the solve's (n_loc, K)."""
+        if self.densify is not None:
+            return self.densify
+        from repro_torch.kernels.ops import prefer_slab_gram
+
+        return not prefer_slab_gram(n_loc, k)
 
 
 def _resolve_cycle(opts: DGLMNETOptions) -> DGLMNETOptions:
@@ -37,11 +60,18 @@ def _resolve_cycle(opts: DGLMNETOptions) -> DGLMNETOptions:
     return opts
 
 
-def resolve(design, opts: DGLMNETOptions) -> Strategy:
-    """Pick the execution plan for ``design`` under ``opts``: the local
-    dense solver, with ``cycle_mode="auto"`` resolved here so everything
-    downstream sees only "sequential" or "blocked"."""
-    if design.layout != "dense":
+def resolve(design, opts: DGLMNETOptions, *,
+            densify: Optional[bool] = None) -> Strategy:
+    """Pick the execution plan for ``design`` under ``opts`` (see the
+    module docstring)."""
+    sharded = isinstance(design, ShardedDesign)
+    if design.layout not in ("dense", "slab"):
         raise ValueError(f"layout {design.layout!r} is not ported yet")
-    opts = _resolve_cycle(opts)
-    return Strategy(execution="local", solver="dense", opts=opts)
+    if sharded and opts.device_budget_bytes is not None:
+        raise ValueError(
+            "device_budget_bytes (streamed slab residency) is not ported yet "
+            "(ROADMAP queue 1, item 10)")
+    execution = "mesh" if sharded else "local"
+    solver = "slab" if (sharded and design.layout == "slab") else "dense"
+    return Strategy(execution=execution, solver=solver,
+                    opts=_resolve_cycle(opts), densify=densify)

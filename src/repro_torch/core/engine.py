@@ -67,8 +67,9 @@ def status_name(code: int) -> str:
     return STATUS_NAMES.get(int(code), f"UNKNOWN({int(code)})")
 
 
-def _host_read(t: torch.Tensor) -> list:
-    """The engine's one door from device to host (counted)."""
+def host_read(t: torch.Tensor):
+    """The one door from device to host (counted): the engine's reads,
+    and the one-off entry reads of a solve's setup."""
     global host_syncs
     host_syncs += 1
     return t.tolist()
@@ -208,7 +209,7 @@ def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
             dbeta, dm, res = _advance(iteration_fn, data, y, s.beta, s.m, lam)
             s, flags = _body(s, dbeta, dm, res, it, max_iters=max_iters,
                              rel_tol=rel_tol)
-            done, status = _host_read(flags)
+            done, status = host_read(flags)
             s = s._replace(status=status,
                            it=it if status == STATUS_OK else it - 1)
             if done:
@@ -230,7 +231,7 @@ def fetch(state: SolverState) -> Tuple[HostState, List[float], List[float]]:
         state.f_hist.to(torch.float64),
         state.a_hist.to(torch.float64),
     ])
-    vals = _host_read(packed)
+    vals = host_read(packed)
     unit_steps, converged = int(vals[0]), bool(vals[1])
     nf = state.f_hist.shape[0]
     it, status = state.it, state.status

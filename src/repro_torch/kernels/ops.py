@@ -17,16 +17,23 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.core.subproblem import NU
 from repro_torch.kernels import blocked_cd as _blocked_cd
 from repro_torch.kernels import gram_cd as _gram_cd
 from repro_torch.kernels import logistic_stats as _logistic_stats
 from repro_torch.kernels import ref
+from repro_torch.kernels import slab_gram as _slab_gram
+from repro_torch.kernels import slab_spmv as _slab_spmv
+from repro_torch.kernels.slab_spmv import SlabOrder, slab_order
 
 _KERNELS = {
     "logistic_stats": _logistic_stats,
     "gram_cd": _gram_cd,
     "blocked_cd": _blocked_cd,
+    "slab_gram": _slab_gram,
+    "slab_spmv": _slab_spmv,
 }
 
 
@@ -84,3 +91,94 @@ def blocked_cd(G, c, beta, dbeta0, lam, nu=NU, *, block: int = 16):
             G.contiguous(), c.contiguous(), beta.contiguous(),
             dbeta0.contiguous(), lam, nu, block=block)
     return ref.blocked_cd_ref(G, c, beta, dbeta0, lam, nu, block=block)
+
+
+# ---------------------------------------------------------------------------
+# sparse slab suite (slabs (..., T, K): local example rows, sentinel n_loc)
+# ---------------------------------------------------------------------------
+
+def prefer_slab_gram(n_loc: int, k: int) -> bool:
+    """nnz-density heuristic: sparse-native Gram when the match join
+    (O(T^2 K^2) VPU ops) beats the dense path (O(nnz) scatter +
+    O(n_loc T^2) MXU FLOPs). The measured crossover sits near
+    K ~ sqrt(n_loc/8) with margin to spare — the paper's truly sparse
+    regime (webspam K is single digits) clears it at any realistic
+    n_loc, while moderate-density slabs fall back to densify-once."""
+    return 8 * k * k <= n_loc
+
+
+def _sentinel_zeroed(rows, vals, w, r, n_loc: int):
+    """Gathered operands with sentinel slots contributing exactly zero.
+
+    Gathers clamp the slab's row indices into range and then mask the
+    result on the original validity predicate, so padding slots (and any
+    values parked on them) never pick up a real example's weight -- in
+    particular not the last row's, which a plain clamped gather would.
+    ``rows``/``vals`` (..., T, K), ``w`` (n_loc,), ``r`` (..., n_loc).
+    Returns (rows clamped to n_loc, va, wv, cva)."""
+    valid = rows < n_loc
+    idx = torch.where(valid, rows, 0).long()
+    va = torch.where(valid, vals, 0.0).to(torch.float32)
+    wv = torch.where(valid, w.to(torch.float32)[idx], 0.0) * va
+    wr = (w * r).to(torch.float32)
+    wr_g = torch.gather(wr, -1, idx.flatten(-2)).view_as(idx)
+    cva = va * torch.where(valid, wr_g, 0.0)
+    return rows.clamp_max(n_loc), va, wv, cva
+
+
+def slab_gram(rows, vals, w, r, *, rows_sorted: bool = False):
+    """Weighted Gram tile and correlation straight from a feature slab.
+
+    rows/vals (..., T, K), local example rows with sentinel n_loc
+    (= ``w.shape[0]``); r (..., n_loc). Returns ``(G (..., T, T),
+    c (..., T))`` with G = X_F^T diag(w) X_F and c = X_F^T (w r), with no
+    (n_loc, T) densify. ``rows_sorted`` promises each feature's slots in
+    row order (the card's kernel needs it and otherwise sorts)."""
+    n_loc = w.shape[0]
+    on_cuda = _on_cuda(rows, vals, w, r)
+    safe, va, wv, cva = _sentinel_zeroed(rows, vals, w, r, n_loc)
+    if on_cuda:
+        return _slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n_loc,
+                                           rows_sorted=rows_sorted)
+    return ref.slab_gram_join(safe, wv, va, cva)
+
+
+def _spmv_cpu(rows, vals, d, n_loc: int):
+    dv = torch.where(rows < n_loc, vals, 0.0).to(torch.float32) * d[..., None]
+    return ref.slab_spmv_scatter(rows.clamp_max(n_loc), dv, n_loc)
+
+
+def slab_spmv(rows, vals, d, *, n_loc: int, order: SlabOrder = None):
+    """``X_F @ d`` from a feature slab (..., T, K) and d (..., T): the
+    (..., n_loc) per-example product, O(nnz). ``order`` is the slab's
+    row-sorted order (:func:`slab_order`), which the card's kernel needs
+    and otherwise builds here."""
+    if _on_cuda(rows, vals, d):
+        out = torch.zeros(*rows.shape[:-2], n_loc, dtype=torch.float32,
+                          device=rows.device)
+        return _slab_spmv.slab_spmv_kernel(
+            slab_order(rows) if order is None else order, vals, d, out,
+            n_loc=n_loc, sign=1.0)
+    return _spmv_cpu(rows, vals, d, n_loc)
+
+
+def slab_residual_update(r, rows, vals, d, *, order: SlabOrder = None):
+    """``r -= X_F @ d`` in place for the residuals r (..., n_loc) of every
+    feature block at once (one launch on the card); returns r."""
+    n_loc = r.shape[-1]
+    if _on_cuda(r, rows, vals, d):
+        return _slab_spmv.slab_spmv_kernel(
+            slab_order(rows) if order is None else order, vals, d, r,
+            n_loc=n_loc, sign=-1.0)
+    return r.sub_(_spmv_cpu(rows, vals, d, n_loc))
+
+
+def slab_corr(rows, vals, v):
+    """Per-feature correlation ``X_F^T v`` from a slab (..., K) -> (...,):
+    the gather-reduce behind lambda_max and the screen (sentinel slots
+    masked to exact zero). A torch op: the reference leaves it to XLA."""
+    n = v.shape[0]
+    valid = rows < n
+    va = torch.where(valid, vals, 0.0).to(torch.float32)
+    vg = torch.where(valid, v.to(torch.float32)[torch.where(valid, rows, 0).long()], 0.0)
+    return (va * vg).sum(-1)

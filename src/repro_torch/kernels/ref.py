@@ -1,7 +1,18 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Plain PyTorch versions of every kernel of the port, the counterpart of
 ``repro/kernels/ref.py``. The CPU path runs them, and the card's kernels
-are held against them."""
+are held against them.
+
+The slab functions take leading batch axes (the M feature blocks):
+
+* :func:`_densify_slab`, :func:`slab_gram_ref`, :func:`slab_spmv_ref` --
+  the densify-based oracles; they define the semantics the sparse
+  kernels must match: duplicate rows within a feature sum, and sentinel
+  slots (row >= n_loc) contribute exactly 0;
+* :func:`slab_gram_join`, :func:`slab_spmv_scatter` -- the match-join
+  and scatter forms of ``repro/kernels/ops.py`` ``slab_gram`` /
+  ``slab_spmv`` off the TPU: what a CPU tensor runs.
+"""
 from __future__ import annotations
 
 import torch
@@ -35,3 +46,73 @@ def blocked_cd_ref(G, c, beta, dbeta0, lam, nu=NU, *, block=16):
     f32 = torch.float32
     return cd_cycle_blocked_tile(G.to(f32), c.to(f32), beta.to(f32),
                                  dbeta0.to(f32), lam, nu, block=block)
+
+
+def _densify_slab(rows, vals, n_loc: int):
+    """Slab (..., T, K) -> dense (..., n_loc, T) via scatter. Sentinel
+    slots (row >= n_loc) land in a swallow row that is dropped; duplicate
+    rows within a feature sum."""
+    *lead, t, k = rows.shape
+    b = 1
+    for s in lead:
+        b *= s
+    safe = rows.reshape(b, t, k).clamp_max(n_loc).long()
+    va = torch.where(rows < n_loc, vals, 0.0).to(torch.float32).reshape(b, t, k)
+    out = torch.zeros(b, n_loc + 1, t, dtype=torch.float32, device=rows.device)
+    bi = torch.arange(b, device=rows.device)[:, None, None].expand(b, t, k)
+    ci = torch.arange(t, device=rows.device)[None, :, None].expand(b, t, k)
+    out.index_put_((bi.reshape(-1), safe.reshape(-1), ci.reshape(-1)),
+                   va.reshape(-1), accumulate=True)
+    return out[:, :n_loc].reshape(*lead, n_loc, t)
+
+
+def slab_gram_ref(rows, vals, w, r):
+    """Oracle for kernels.slab_gram: densify, then the dense weighted Gram
+    G = X_F^T diag(w) X_F and correlation c = X_F^T (w r)."""
+    xf = _densify_slab(rows, vals, w.shape[0])
+    wxf = w.to(torch.float32)[:, None] * xf
+    G = xf.transpose(-1, -2) @ wxf
+    c = (wxf.transpose(-1, -2) @ r.to(torch.float32)[..., None])[..., 0]
+    return G, c
+
+
+def slab_spmv_ref(rows, vals, d, n_loc: int):
+    """Oracle for kernels.slab_spmv: densify, then X_F @ d."""
+    xf = _densify_slab(rows, vals, n_loc)
+    return (xf @ d.to(torch.float32)[..., None])[..., 0]
+
+
+def slab_gram_join(safe, wv, va, cva):
+    """The match join that computes (G, c) off the card, from operands
+    gathered and sentinel-zeroed by ``ops._sentinel_zeroed``:
+    G[a, b] = sum over slot pairs (ka, kb) with equal rows of
+    wv[a, ka] * va[b, kb], and c = sum_k cva. One (TK, TK) match when
+    T*K <= 2048, else one (TK, T) match per right-hand slot column."""
+    *lead, t, k = safe.shape
+    rf = safe.reshape(*lead, t * k)
+    wvf = wv.reshape(*lead, t * k)
+    if t * k <= 2048:
+        match = (rf[..., :, None] == rf[..., None, :]).to(torch.float32)
+        G = (wvf[..., :, None] * match * va.reshape(*lead, 1, t * k)
+             ).reshape(*lead, t, k, t, k).sum(dim=(-3, -1))
+    else:
+        G = wv.new_zeros(*lead, t, t)
+        for kp in range(k):
+            mk = (rf[..., :, None] == safe[..., None, :, kp]).to(torch.float32)
+            contrib = (wvf[..., :, None] * mk).reshape(*lead, t, k, t).sum(-2)
+            G = G + contrib * va[..., None, :, kp]
+    return G, cva.sum(-1)
+
+
+def slab_spmv_scatter(safe, dv, n_loc: int):
+    """X_F @ d off the card: a scatter-add of dv = values * d[feature]
+    (sentinel-zeroed) over the slot rows ``safe`` (clamped to n_loc, the
+    dropped swallow row). Batched over leading axes -> (..., n_loc)."""
+    *lead, t, k = safe.shape
+    b = 1
+    for s in lead:
+        b *= s
+    out = torch.zeros(b, n_loc + 1, dtype=torch.float32, device=safe.device)
+    out.scatter_add_(1, safe.reshape(b, t * k).long(),
+                     dv.reshape(b, t * k).to(torch.float32))
+    return out[:, :n_loc].reshape(*lead, n_loc)

@@ -199,9 +199,9 @@ def test_from_reference_scores_like_the_reference(problem, jax_fits):
 def test_estimator_surface():
     est = LogisticL1(device="cpu")
     assert est.intercept_ == 0.0 and est.coef_ is None
-    assert set(est.get_params()) == {"opts", "device", "warm_start"}
+    assert set(est.get_params()) == {"opts", "mesh", "device", "warm_start"}
     assert est.set_params(warm_start=True).warm_start is True
     with pytest.raises(ValueError, match="unknown parameter"):
-        est.set_params(mesh=None)
+        est.set_params(lam=0.1)
     with pytest.raises(ValueError, match="not fitted"):
         est.decision_function(np.zeros((2, 3), np.float32))

@@ -190,7 +190,13 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
     ops.gram_cd(*args)
     ops.blocked_cd(*args, block=8)
     ops.logistic_stats(torch.zeros(10), torch.ones(10))
-    assert ops.launch_counts() == {"logistic_stats": 0, "gram_cd": 0, "blocked_cd": 0}
+    rows = torch.tensor([[0, 2], [1, 5]], dtype=torch.int32)
+    vals = torch.ones(2, 2)
+    ops.slab_gram(rows, vals, torch.ones(5), torch.ones(5))
+    ops.slab_spmv(rows, vals, torch.ones(2), n_loc=5)
+    ops.slab_residual_update(torch.ones(5), rows, vals, torch.ones(2))
+    assert ops.launch_counts() == {"logistic_stats": 0, "gram_cd": 0, "blocked_cd": 0,
+                                   "slab_gram": 0, "slab_spmv": 0}
     with pytest.raises(ValueError, match="mixed devices"):
         ops.logistic_stats(torch.zeros(4), torch.ones(4, device="meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
