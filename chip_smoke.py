@@ -43,12 +43,29 @@ of which fails the run with a non-zero exit:
    (both sides taking the same steps) betas within rtol 1e-2 / atol 1e-3;
    the slab-native card fit under torch's sync debug mode synchronises
    only through the engine's door;
-9. times -- each kernel, its plain version and, where one PyTorch call
+9. LM kernels -- ``flash_attention`` against its plain version at the
+   serving cell's attention shape (B=8, S=2048, H=32, Hk=4, D=64), one
+   Hk == H shape and the reference's sweep shapes, in float32 (atol 2e-5)
+   and bfloat16 (atol 3e-2, and on every element within half a bf16 ulp
+   plus 2e-5 of the plain version's float32 result before its cast),
+   causal and full, two launches bit-equal;
+10. LM serving cell -- tinyllama-1.1b at full width (22 layers, d_model
+   2048, bf16, weights drawn on the card from seed 0) serves 8 prompts of
+   2048 tokens plus 32 greedy tokens through ``repro_torch.launch.serve``
+   ``generate``: exactly 22 ``flash_attention`` launches (one per layer
+   in prefill, none in decode), the last prefill logits through the
+   kernel against the plain chunked path, and one host read for the
+   whole generation under torch's sync debug mode; prefill ms, decode ms
+   per token, tokens/s and peak memory;
+11. LM agreement -- tinyllama's float32 ``smoke()`` model with a 128-token
+   prompt on the card against the same model on the CPU: prefill logits
+   within 1e-4, 8 greedy tokens equal;
+12. times -- each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
-10. profile -- device time by kernel (torch.profiler) for one dense fit
-   per cycle mode and a 3-iteration sparse fit; a profile with no device
-   time fails the run.
+13. profile -- device time by kernel (torch.profiler) for one dense fit
+   per cycle mode, a 3-iteration sparse fit, one LM prefill and 8 decode
+   steps after it; a profile with no device time fails the run.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
@@ -71,6 +88,7 @@ TOL = 1e-5
 # H100 SXM data-sheet peaks used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12              # dense tensor-core rate
 
 
 def fail(msg: str):
@@ -105,9 +123,9 @@ def time_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -694,6 +712,243 @@ def phase_sparse_agreement(torch):
                       f"rtol 1e-2 / atol 1e-3")
 
 
+# ---------------------------------------------------------------------------
+# the LM serving cell: tinyllama-1.1b, batched prefill + greedy decode
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "tinyllama-1.1b"
+LM_BATCH, LM_PROMPT, LM_TOKENS = 8, 2048, 32
+#: flash_attention against its plain version (tests/test_kernels.py's atol)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+#: bfloat16 output against the plain version's float32 result before its
+#: cast, on every element: half a bf16 ulp (<= 2**-8 |o|) from the kernel's
+#: one round-to-nearest cast, plus the float32 tolerance for the different
+#: summation order. At S = 2048, |o| is about 0.03-0.06, so the reference's
+#: 3e-2 alone would pass a wrong bf16 path (probabilities rounded to bf16,
+#: a truncating cast); this bound does not.
+FLASH_BF16_REL, FLASH_BF16_ABS = 2.0 ** -8, 2e-5
+#: last prefill logits through the kernel against the plain chunked path,
+#: bf16 model of 22 layers: the two attention paths round their bf16
+#: outputs at different elements (one bf16 ulp), and the differences grow
+#: through the residual stream; measured 0.068 at max |logit| 4.0, std 0.88
+LM_LOGIT_TOL = 0.25
+#: the float32 smoke model on the card against the CPU (tests/test_torch_lm.py)
+LM_AGREE_TOL = 1e-4
+
+
+def flash_shapes():
+    """(label, B, S, H, Hk, D): the serving cell's attention, one Hk == H
+    shape and the reference's sweep shapes (tests/test_kernels.py)."""
+    return [("cell", LM_BATCH, LM_PROMPT, 32, 4, 64), ("Hk == H", 2, 1024, 16, 16, 64),
+            ("sweep", 1, 256, 2, 2, 64), ("sweep", 2, 512, 4, 4, 32),
+            ("sweep", 1, 128, 1, 1, 128)]
+
+
+def phase_lm_kernels(torch, gen):
+    """flash_attention against its plain version, float32 and bfloat16,
+    causal and full; two launches bit-equal. Returns the error at the
+    main path's case (the cell's shape, bfloat16, causal)."""
+    from repro_torch.kernels import flash_attention, ref
+
+    err = None
+    for label, B, S, H, Hk, D in flash_shapes():
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+            k = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dt)
+            v = torch.randn(B, S, Hk, D, generator=gen, device="cuda").to(dt)
+            tol = FLASH_TOL[str(dt).removeprefix("torch.")]
+            for causal in (True, False):
+                got = flash_attention.flash_attention_kernel(q, k, v, causal=causal)
+                again = flash_attention.flash_attention_kernel(q, k, v, causal=causal)
+                plain = ref.flash_attention_ref(q, k, v, causal=causal)
+                e = max_err(got, plain)
+                ulp = ""
+                if dt == torch.bfloat16:
+                    # the plain version's float32 result, before its cast
+                    p32 = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                                  causal=causal)
+                    ratio = float(((got.float() - p32).abs()
+                                   / (FLASH_BF16_REL * p32.abs() + FLASH_BF16_ABS)).max())
+                    ulp = (f", against the float32 plain result {ratio:.3g} of "
+                           f"2^-8 |o| + {FLASH_BF16_ABS}")
+                    e_ok = e <= tol and ratio <= 1.0
+                    del p32
+                else:
+                    e_ok = e <= tol
+                torch.cuda.synchronize()
+                same = torch.equal(got, again)
+                ok = e_ok and got.dtype == dt and got.shape == q.shape
+                print(f"[lm-kernels] flash_attention {label} B={B} S={S} H={H} Hk={Hk} D={D} "
+                      f"{str(dt).removeprefix('torch.')} {'causal' if causal else 'full'}: "
+                      f"max abs err {e:.3g} (atol {tol}){ulp}, two launches "
+                      f"{'bit-equal' if same else 'DIFFERENT'} -> {'ok' if ok and same else 'MISMATCH'}")
+                check(ok, f"flash_attention {label} {dt} causal={causal} disagrees with its "
+                          f"plain version")
+                check(same, f"flash_attention {label} {dt} causal={causal}: two launches differ")
+                if label == "cell" and dt == torch.bfloat16 and causal:
+                    err = e
+                del got, again, plain
+            del q, k, v
+    return {"flash_attention": err}
+
+
+def phase_lm(torch, card):
+    """The serving cell: tinyllama-1.1b at full width on the card."""
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import decode, generate, greedy, prefill
+    from repro_torch.models import init_params, param_bytes
+    from repro_torch.train import make_prefill_step
+
+    cfg = MODEL_CONFIGS[LM_ARCH]
+    att = cfg.attention
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()          # by the earlier phases
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    kv_bytes = (2 * cfg.num_layers * LM_BATCH * (LM_PROMPT + LM_TOKENS) * att.num_kv_heads
+                * att.resolved_head_dim(cfg.d_model) * 2)
+    print(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {att.num_heads}/{att.num_kv_heads} heads, "
+          f"{n_params} parameters ({param_bytes(cfg) / 1e9:.2f} GB bf16) drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; batch {LM_BATCH} x {LM_PROMPT} prompt tokens + "
+          f"{LM_TOKENS} greedy tokens; KV cache {kv_bytes / 1e6:.1f} MB")
+    check(n_params == cfg.num_params(), "parameter count differs from count_params_analytic")
+    # warm-up (cuBLAS handles, allocator pools), outside the counts
+    generate(params, cfg, prompts, tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out, stats = generate(params, cfg, prompts, tokens=LM_TOKENS)
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    decode_ms = stats["decode_ms_per_token"]
+    print(f"[lm] serve: prefill {stats['prefill_ms']:.2f} ms ({LM_BATCH * LM_PROMPT} prompt "
+          f"tokens, {LM_BATCH * LM_PROMPT * 1e3 / stats['prefill_ms']:.0f} tokens/s), decode "
+          f"{decode_ms:.3f} ms/token ({LM_BATCH * 1e3 / decode_ms:.0f} tokens/s at batch "
+          f"{LM_BATCH}), whole generation {wall * 1e3:.1f} ms ({LM_BATCH * LM_TOKENS / wall:.0f} "
+          f"generated tokens/s), peak device memory {peak:.2f} GB (weights and prompts included, "
+          f"earlier phases' {held / 1e9:.2f} GB not), launches {counts}, on {card}")
+    print(f"[lm] sample: {out[0, :16].tolist()}")
+    check(tuple(out.shape) == (LM_BATCH, LM_TOKENS) and out.dtype == torch.int32,
+          f"generated {tuple(out.shape)} {out.dtype}, expected ({LM_BATCH}, {LM_TOKENS}) int32")
+    check(0 <= int(out.min()) and int(out.max()) < cfg.padded_vocab, "token ids out of range")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"flash_attention launched {counts['flash_attention']} times in one generation, "
+          f"expected {cfg.num_layers} (once per layer in prefill, never in decode)")
+
+    # prefill alone and one decode step alone
+    ops.reset_launch_counts()
+    logits_k, cache = prefill(params, cfg, prompts, LM_PROMPT + LM_TOKENS)
+    n_prefill = ops.launch_counts()["flash_attention"]
+    ops.reset_launch_counts()
+    decode(params, cfg, cache, LM_PROMPT, greedy(logits_k), 1)
+    n_decode = ops.launch_counts()["flash_attention"]
+    del cache
+    check(n_prefill == cfg.num_layers and n_decode == 0,
+          f"launches: {n_prefill} in prefill (expected {cfg.num_layers}), {n_decode} in decode")
+    # the kernel against the plain chunked path, through the whole model
+    logits_p, _ = make_prefill_step(cfg, use_flash_kernel=False)(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    e = max_err(logits_k, logits_p)
+    agree = float((logits_k[:, -1].argmax(-1) == logits_p[:, -1].argmax(-1)).float().mean())
+    print(f"[lm] last prefill logits, kernel vs plain chunked attention: max abs err {e:.4g} "
+          f"(tol {LM_LOGIT_TOL}; max |logit| {float(logits_p.float().abs().max()):.3g}, std "
+          f"{float(logits_p.float().std()):.3g}), next-token argmax agreement {agree:.3f}")
+    check(bool(torch.isfinite(logits_k.float()).all()), "prefill logits are not finite")
+    check(e <= LM_LOGIT_TOL, f"prefill logits through the kernel differ from the plain "
+                             f"path by {e}")
+    del logits_k, logits_p
+    # one host read for the whole generation
+    _, sites, stacks = under_sync_debug(
+        torch, lambda: generate(params, cfg, prompts, tokens=LM_TOKENS))
+    print(f"[lm] synchronising calls in one generation (prefill + {LM_TOKENS - 1} decode "
+          f"steps + fetch + reading the CUDA events), by call site: {dict(sites)}")
+    if sum(sites.values()) != 1:
+        for site, stack in stacks.items():
+            print(f"[lm] synchronising call at {site}:\n{stack}")
+    check(sum(sites.values()) == 1 and all(site.startswith("serve.py:") for site in sites),
+          f"one generation made {sum(sites.values())} host reads: {dict(sites)}")
+    return ({"flash_attention": counts["flash_attention"]},
+            dict(stats, wall_s=wall, peak_gb=peak), (cfg, params, prompts))
+
+
+def phase_lm_agree(torch):
+    """The float32 smoke() model with a 128-token prompt: card against CPU."""
+    import copy
+
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+    from repro_torch.train import make_prefill_step
+
+    cfg = MODEL_CONFIGS[LM_ARCH].smoke()
+    gen = torch.Generator().manual_seed(5)
+    cpu = init_params(gen, cfg, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, dtype=torch.int32)
+    card = copy.deepcopy(cpu).to("cuda")
+    prefill = make_prefill_step(cfg, use_flash_kernel=True)
+    lc, _ = prefill(card, {"tokens": prompts.cuda()})
+    lp, _ = prefill(cpu, {"tokens": prompts})
+    tc, _ = generate(card, cfg, prompts.cuda(), tokens=8)
+    tp, _ = generate(cpu, cfg, prompts, tokens=8)
+    e = max_err(lc.cpu(), lp)
+    print(f"[lm-agree] {cfg.name} float32, 2 x 128 prompt: card vs cpu last prefill logits "
+          f"max abs err {e:.3g} (tol {LM_AGREE_TOL}); greedy tokens "
+          f"{'equal' if torch.equal(tc, tp) else 'DIFFERENT'}: {tc[0].tolist()}")
+    check(e <= LM_AGREE_TOL, f"card vs cpu prefill logits differ by {e}")
+    check(torch.equal(tc, tp), f"card vs cpu greedy tokens differ: {tc.tolist()} vs {tp.tolist()}")
+
+
+def lm_time_rows(torch):
+    """Row 6 of the kernel table: the kernel, its plain version and
+    scaled_dot_product_attention at the cell's attention shape (bfloat16,
+    causal, 32 query heads on 4 KV heads)."""
+    from repro_torch.kernels import flash_attention, ref
+
+    B, S, H, Hk, D = LM_BATCH, LM_PROMPT, 32, 4, 64
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (H, Hk, Hk))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hk * D)
+    n_flops = 4 * S * S * D * B * H // 2
+    return [("flash_attention", "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:84",
+             lambda: flash_attention.flash_attention_kernel(q, k, v, causal=True),
+             lambda: ref.flash_attention_ref(q, k, v, causal=True),
+             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+             n_bytes, n_flops,
+             f"B={B} S={S} H={H} Hk={Hk} D={D} bf16 causal; bound at the bf16 tensor-core "
+             f"peak (the f32 CUDA-core peak would give "
+             f"{n_flops / F32_FLOPS_PER_S * 1e3:.3f} ms)", BF16_FLOPS_PER_S)]
+
+
+def profile_prefill(torch, lm_inputs, card):
+    """Device time by kernel over one prefill of the serving cell (with
+    its splice into the full cache), then over 8 decode steps after it."""
+    from repro_torch.launch.serve import decode, greedy, prefill
+
+    cfg, params, prompts = lm_inputs
+    (logits, cache), rows, busy, wall_ms = device_profile(
+        torch, "lm prefill", lambda: prefill(params, cfg, prompts, LM_PROMPT + LM_TOKENS))
+    report_profile("lm prefill", f"{LM_BATCH} x {LM_PROMPT} tokens", rows, busy, wall_ms, card)
+    tok = greedy(logits)
+    del logits
+    decode(params, cfg, cache, LM_PROMPT, tok, 2)       # warm-up
+    _, rows, busy, wall_ms = device_profile(
+        torch, "lm decode", lambda: decode(params, cfg, cache, LM_PROMPT, tok, 8))
+    report_profile("lm decode", "8 steps at batch 8", rows, busy, wall_ms, card)
+
+
 def sparse_time_rows(torch, inp):
     """Rows 4 and 5 of the kernel table: the kernel, its plain version and
     one PyTorch library call on the inputs of one tile step of the cell."""
@@ -775,12 +1030,13 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
                  lambda: ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=16),
                  tile_bytes + 4 * M * F + 4 * M * (F // 16), 2 * M * F * F + 10 * M * F))
     rows = [(*row[:6], None, *row[6:], "") for row in rows] + sparse_time_rows(torch, sparse_inputs)
+    rows = [(*row, F32_FLOPS_PER_S) for row in rows] + lm_time_rows(torch)
     table = []
-    for name, route, source, replaces, kern, plain, library, n_bytes, n_flops, note in rows:
+    for name, route, source, replaces, kern, plain, library, n_bytes, n_flops, note, peak in rows:
         ms = time_ms(torch, kern, flush)
         plain_ms = time_ms(torch, plain, flush)
         library_ms = None if library is None else time_ms(torch, library, flush)
-        b_ms, b_by = bound_ms(n_bytes, n_flops)
+        b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
         print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
               f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}"
@@ -807,24 +1063,28 @@ def _kind(name: str) -> str:
         return "slab_gram kernel"
     if "slab_spmv_kernel" in low:
         return "slab_spmv kernel"
-    if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas", "dot_kernel")):
-        return "matmul (Gram, c, residual, margins)"
+    if "flash_attention_kernel" in low:
+        return "flash_attention kernel"
+    if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas", "dot_kernel",
+                              "nvjet")):
+        return "matmul (cuBLAS)"
     if "sort" in low:
         return "sorts (slab layout)"
     if "memcpy" in low or "memset" in low:
         return "copies"
-    return "other elementwise/reductions (line search, gathers, layout, bookkeeping)"
+    return "other elementwise and reductions (line search, gathers, norms, RoPE, casts)"
 
 
-def profile_fit(torch, label: str, fit, card):
-    """Device time by kernel over one fit (torch.profiler). A profile with
-    no device time fails the run."""
+def device_profile(torch, label: str, fn):
+    """Run ``fn()`` under torch.profiler; returns (its result, the device
+    time rows (ms, count, name) by kernel, busy ms, wall ms). A profile
+    with no device time fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = fit()
+        res = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -836,11 +1096,16 @@ def profile_fit(torch, label: str, fit, card):
             rows.append((us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     check(bool(rows), f"profile {label}: the profiler recorded no device time")
-    busy = sum(r[0] for r in rows)
+    return res, rows, sum(r[0] for r in rows), wall_ms
+
+
+def report_profile(label: str, what: str, rows, busy, wall_ms, card):
+    """Print a profile's busy and idle time, its shares by kind and each
+    hand-written kernel's time per launch."""
     groups = Counter()
     for ms, _, name in rows:
         groups[_kind(name)] += ms
-    print(f"[profile] {label}: {res.n_iters} iters, wall {wall_ms:.1f} ms under the "
+    print(f"[profile] {label}: {what}, wall {wall_ms:.1f} ms under the "
           f"profiler, device busy {busy:.1f} ms (idle share {1 - busy / wall_ms:.2f}) "
           f"on {card}")
     for kind, ms in groups.most_common():
@@ -850,11 +1115,18 @@ def profile_fit(torch, label: str, fit, card):
     for ms, count, name in rows:
         if _kind(name).endswith(" kernel"):
             print(f"[profile] {label}: {name[:40]}: {ms / count * 1e3:.1f} us per "
-                  f"launch in the fit ({count} launches)")
+                  f"launch in the run ({count} launches)")
 
 
-def phase_profile(torch, ds, lam, cell, sparse_lam, card):
-    """One dense fit per cycle mode and a 3-iteration sparse fit, profiled."""
+def profile_fit(torch, label: str, fit, card):
+    """Device time by kernel over one fit (torch.profiler)."""
+    res, rows, busy, wall_ms = device_profile(torch, label, fit)
+    report_profile(label, f"{res.n_iters} iters", rows, busy, wall_ms, card)
+
+
+def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
+    """One dense fit per cycle mode, a 3-iteration sparse fit and one LM
+    prefill, profiled."""
     from repro_torch.api import DenseDesign, LogisticL1, SlabDesign
     from repro_torch.core.dglmnet import DGLMNETOptions
     from repro_torch.launch.mesh import make_dev_mesh
@@ -869,6 +1141,8 @@ def phase_profile(torch, ds, lam, cell, sparse_lam, card):
     est = LogisticL1(opts, mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
     profile_fit(torch, "sparse sequential (3 iterations)",
                 lambda: est.fit(SlabDesign(rows, vals, y.shape[0]), y, sparse_lam), card)
+    del rows, vals, y
+    profile_prefill(torch, lm_inputs, card)
 
 
 def main() -> int:
@@ -896,6 +1170,10 @@ def main() -> int:
     for name, count in sparse_launches.items():
         launches[name] = launches.get(name, 0) + count
     phase_sparse_agreement(torch)
+    errs.update(phase_lm_kernels(torch, gen))
+    lm_launches, lm_stats, lm_inputs = phase_lm(torch, card)
+    launches.update(lm_launches)
+    phase_lm_agree(torch)
     table = phase_times(torch, gen, errs, launches, card, sparse_inputs)
     del sparse_inputs
     for mode, (wall, wall2, iters, syncs) in fits.items():
@@ -906,7 +1184,10 @@ def main() -> int:
         print(f"[times] sparse fit {mode}: {wall:.3f} s whole fit, "
               f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
               f"{syncs} host syncs, {peak:.2f} GB peak, on {card}")
-    phase_profile(torch, ds, lam, cell, sparse_lam, card)
+    print(f"[times] lm serve {LM_ARCH}: prefill {lm_stats['prefill_ms']:.2f} ms, decode "
+          f"{lm_stats['decode_ms_per_token']:.3f} ms/token, whole generation "
+          f"{lm_stats['wall_s']:.3f} s, {lm_stats['peak_gb']:.2f} GB peak, on {card}")
+    phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

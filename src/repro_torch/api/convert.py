@@ -1,5 +1,5 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
-"""Carry a fitted state from the JAX package into the port.
+"""Carry state from the JAX package into the port.
 
 The reference's fitted coefficients arrive as a numpy array (the tests
 pass ``np.asarray(jax_estimator.beta_)``); :func:`from_reference`
@@ -7,6 +7,10 @@ turns them into the port's estimator state, so a port estimator scores
 and warm-starts from a JAX solution::
 
     est = LogisticL1(opts, device="cuda", **from_reference(beta, lam, device="cuda"))
+
+:func:`lm_params_from_reference` loads an LM's reference parameter tree
+(as numpy arrays: ``jax.tree.map(np.asarray, init_params(key, cfg))``)
+into the port's model, unstacking each segment's leading layer axis.
 """
 from __future__ import annotations
 
@@ -23,3 +27,48 @@ def from_reference(beta: np.ndarray, lam: float, *, device=DEFAULT_DEVICE) -> di
         raise ValueError(f"beta must be (p,), got shape {beta.shape}")
     return {"beta_": torch.tensor(beta, device=resolve_device(device)),
             "lam_": float(lam)}
+
+
+def _as_tensor(a) -> torch.Tensor:
+    a = np.array(a)                          # a writable copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: reinterpret the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_reference(params, cfg, *, device=DEFAULT_DEVICE):
+    """The port's LM (``models.transformer.LM``) holding the reference's
+    weights: ``params["segments"][i][...][j]`` becomes layer j of segment
+    i; every other leaf maps by name. Raises on a missing, extra or
+    mis-shaped leaf."""
+    from repro_torch.models.transformer import LM
+
+    lm = LM(cfg, None, device=resolve_device(device))
+    used = 0
+    with torch.no_grad():
+        for name, p in lm.named_parameters():
+            parts = name.split(".")
+            node, layer = params, None
+            if parts[0] == "segments":
+                node, layer, parts = params["segments"][int(parts[1])], int(parts[2]), parts[3:]
+            for key in parts:
+                node = node[key]
+            t = _as_tensor(node if layer is None else np.asarray(node)[layer])
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: reference shape {tuple(t.shape)}, "
+                                 f"port shape {tuple(p.shape)}")
+            p.copy_(t)
+            used += 1
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return sum(leaves(v) for v in tree.values())
+        if isinstance(tree, (list, tuple)):
+            return sum(leaves(v) for v in tree)
+        return 1
+
+    n_ref = leaves({k: v for k, v in params.items() if k != "segments"})
+    n_ref += sum(leaves(seg) * len(lm.segments[i]) for i, seg in enumerate(params["segments"]))
+    if n_ref != used:
+        raise ValueError(f"the reference tree has {n_ref} per-layer leaves, the port {used}")
+    return lm

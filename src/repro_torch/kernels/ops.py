@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.subproblem import NU
 from repro_torch.kernels import blocked_cd as _blocked_cd
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gram_cd as _gram_cd
 from repro_torch.kernels import logistic_stats as _logistic_stats
 from repro_torch.kernels import ref
@@ -34,6 +35,7 @@ _KERNELS = {
     "blocked_cd": _blocked_cd,
     "slab_gram": _slab_gram,
     "slab_spmv": _slab_spmv,
+    "flash_attention": _flash_attention,
 }
 
 
@@ -182,3 +184,15 @@ def slab_corr(rows, vals, v):
     va = torch.where(valid, vals, 0.0).to(torch.float32)
     vg = torch.where(valid, v.to(torch.float32)[torch.where(valid, rows, 0).long()], 0.0)
     return (va * vg).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# attention (the LM zoo)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Blocked online-softmax attention (forward): q (B, S, H, D), k/v
+    (B, S, Hk, D) with H a multiple of Hk -> (B, S, H, D) in q's type."""
+    if _on_cuda(q, k, v):
+        return _flash_attention.flash_attention_kernel(q, k, v, causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -12,6 +12,9 @@ The slab functions take leading batch axes (the M feature blocks):
 * :func:`slab_gram_join`, :func:`slab_spmv_scatter` -- the match-join
   and scatter forms of ``repro/kernels/ops.py`` ``slab_gram`` /
   ``slab_spmv`` off the TPU: what a CPU tensor runs.
+
+:func:`flash_attention_ref` is plain softmax attention, the oracle of the
+attention kernel and what a CPU tensor runs.
 """
 from __future__ import annotations
 
@@ -116,3 +119,23 @@ def slab_spmv_scatter(safe, dv, n_loc: int):
     out.scatter_add_(1, safe.reshape(b, t * k).long(),
                      dv.reshape(b, t * k).to(torch.float32))
     return out[:, :n_loc].reshape(*lead, n_loc)
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """Plain softmax attention, the plain version of kernels.flash_attention:
+    q (B, S, H, D), k/v (B, S, Hk, D) with H a multiple of Hk (query head
+    h reads KV head h // (H / Hk)); float32 scores, -1e30 causal mask,
+    output in q's type."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    if g != 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    scale = 1.0 / (d ** 0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.to(torch.float32)).to(q.dtype)

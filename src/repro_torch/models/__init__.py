@@ -1,0 +1,7 @@
+# allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
+"""The LM zoo of the port (counterpart of ``repro.models``): the dense
+attention architectures (GQA, RoPE, RMSNorm, SwiGLU) for prefill and
+decode. MoE, SSM, MLA, hybrid and enc-dec layers are not ported yet."""
+from repro_torch.models.params import count_params_analytic, forward, init_cache, init_params, param_bytes
+
+__all__ = ["count_params_analytic", "forward", "init_cache", "init_params", "param_bytes"]

@@ -1,0 +1,198 @@
+"""The port's attention kernel layer on the CPU, against the JAX package on
+the same numpy inputs.
+
+* ``ops.flash_attention`` (a CPU tensor runs the plain version) and
+  ``ref.flash_attention_ref`` against the reference's Pallas kernel in
+  interpret mode and its ``ref.flash_attention_ref``, at the reference's
+  sweep shapes, causal and full: float32 at atol 2e-5 and bfloat16 at
+  atol 3e-2 (``tests/test_kernels.py``'s tolerances).
+* GQA through ``sdpa(use_flash_kernel=True)`` against the reference's
+  ``sdpa`` (atol 2e-5, ``tests/test_models.py``); a shape that does not
+  qualify (S % 128 != 0) takes the chunked path in both packages.
+* The card kernel's tile algorithm, written out in PyTorch here: skipping
+  the KV tiles wholly above the diagonal under ``causal`` is exact (bit
+  for bit the same as visiting them), and the algorithm matches the plain
+  version.
+
+The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
+against the plain version); here its wrapper must refuse CPU tensors.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import flash_attention as j_flash_attention
+from repro.kernels.ref import flash_attention_ref as j_flash_attention_ref
+from repro.models.attention import sdpa as j_sdpa
+from repro_torch.kernels import flash_attention, ops, ref
+from repro_torch.models import attention as tattn
+
+torch.set_num_threads(2)
+
+
+def qkv(shape, hk=None, seed=0):
+    b, s, h, d = shape
+    rng = np.random.default_rng(seed)
+    kv_shape = (b, s, hk or h, d)
+    return (rng.standard_normal(shape, dtype=np.float32),
+            rng.standard_normal(kv_shape, dtype=np.float32),
+            rng.standard_normal(kv_shape, dtype=np.float32))
+
+
+def _f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else a, np.float32)
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((1, 256, 2, 64), (128, 128)),
+    ((2, 512, 4, 32), (128, 64)),
+    ((1, 128, 1, 128), (64, 128)),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_sweep_matches_reference(shape, blocks, causal):
+    q, k, v = qkv(shape, seed=shape[1] + shape[3])
+    bq, bk = blocks
+    want = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, block_q=bq, block_k=bk)
+    want_ref = j_flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     causal=causal)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    got_ref = ref.flash_attention_ref(tq, tk, tv, causal=causal)
+    for g in (got, got_ref):
+        assert g.dtype == torch.float32 and g.shape == shape
+        np.testing.assert_allclose(_f32(g), np.asarray(want), atol=2e-5)
+        np.testing.assert_allclose(_f32(g), np.asarray(want_ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bfloat16_matches_reference(causal):
+    q, k, v = qkv((1, 256, 2, 64), seed=11)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = j_flash_attention(jq, jk, jv, causal=causal, block_q=128, block_k=128)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), np.asarray(want, np.float32), atol=3e-2)
+    np.testing.assert_allclose(
+        _f32(got), np.asarray(j_flash_attention_ref(jq, jk, jv, causal=causal), np.float32),
+        atol=3e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_sdpa_flash_switch_gqa_matches_reference(causal, monkeypatch):
+    """GQA (4 query heads on 2 KV heads) through the flash switch: the port
+    hands grouped K/V to ops.flash_attention, the reference repeats them
+    to 4 heads first; both against the reference's chunked path too."""
+    b, s, h, hk, dh = 2, 256, 4, 2, 64
+    q, k, v = qkv((b, s, h, dh), hk=hk, seed=9)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    scale = 1.0 / dh ** 0.5
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos), jnp.asarray(pos))
+    want_flash = j_sdpa(*jargs, scale=scale, causal=causal, use_flash_kernel=True)
+    want_jnp = j_sdpa(*jargs, scale=scale, causal=causal, q_chunk=64)
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **kw: calls.append(a[1].shape) or real(*a, **kw))
+    targs = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (q, k, v, pos, pos))
+    got = tattn.sdpa(*targs, scale=scale, causal=causal, use_flash_kernel=True)
+    assert calls == [(b, s, hk, dh)]            # grouped K/V, not expanded
+    np.testing.assert_allclose(_f32(got), np.asarray(want_flash), atol=2e-5)
+    np.testing.assert_allclose(_f32(got), np.asarray(want_jnp), atol=2e-5)
+
+
+def test_sdpa_unqualified_shape_takes_the_chunked_path(monkeypatch):
+    """S = 96 is not a multiple of 128: with the switch on, both packages
+    take the chunked path (the port never reaches ops.flash_attention)."""
+    b, s, h, hk, dh = 2, 96, 4, 2, 32
+    q, k, v = qkv((b, s, h, dh), hk=hk, seed=5)
+    pos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    want = j_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+                  jnp.asarray(pos), scale=0.2, use_flash_kernel=True, q_chunk=32)
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda *a, **kw: pytest.fail("unqualified shape reached the kernel"))
+    targs = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (q, k, v, pos, pos))
+    got = tattn.sdpa(*targs, scale=0.2, use_flash_kernel=True, q_chunk=32)
+    np.testing.assert_allclose(_f32(got), np.asarray(want), atol=2e-5)
+
+
+def test_gqa_maps_query_head_to_kv_head_by_division():
+    """Query head h reads KV head h // (H / Hk), as jnp.repeat(k, g, axis=2)
+    lays the heads out (not h % Hk)."""
+    b, s, h, hk, d = 1, 128, 8, 2, 32
+    q, k, v = qkv((b, s, h, d), hk=hk, seed=3)
+    got = ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)))
+    g = h // hk
+    want = j_flash_attention_ref(jnp.asarray(q), jnp.asarray(np.repeat(k, g, axis=2)),
+                                 jnp.asarray(np.repeat(v, g, axis=2)))
+    np.testing.assert_allclose(_f32(got), np.asarray(want), atol=2e-5)
+    wrong = ref.flash_attention_ref(*map(torch.from_numpy, (q, np.tile(k, (1, 1, g, 1)),
+                                                             np.tile(v, (1, 1, g, 1)))))
+    assert not np.allclose(_f32(got), _f32(wrong), atol=1e-3)
+
+
+def tile_algorithm(q, k, v, *, causal, skip, block=64):
+    """The card kernel's algorithm in float32 PyTorch: per 64-row query
+    tile, an online softmax over 64-key tiles with scores masked to
+    -1e30, running max m, denominator l and accumulator; ``skip`` leaves
+    out the KV tiles wholly above the diagonal, as the kernel does."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    k = k.repeat_interleave(g, dim=2)
+    v = v.repeat_interleave(g, dim=2)
+    scale = 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, s, block):
+        qt = q[:, q0:q0 + block].transpose(1, 2)                 # (b, h, Bq, d)
+        m = torch.full((b, h, block, 1), -1e30)
+        l = torch.zeros(b, h, block, 1)
+        acc = torch.zeros(b, h, block, d)
+        last = q0 // block + 1 if (causal and skip) else s // block
+        for kt in range(last):
+            k0 = kt * block
+            sc = (qt @ k[:, k0:k0 + block].permute(0, 2, 3, 1)) * scale
+            if causal:
+                rows = torch.arange(q0, q0 + block)[:, None]
+                cols = torch.arange(k0, k0 + block)[None, :]
+                sc = torch.where(rows >= cols, sc, -1e30)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            p = torch.exp(sc - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ v[:, k0:k0 + block].transpose(1, 2)
+            m = m_new
+        out[:, q0:q0 + block] = (acc / l.clamp_min(1e-30)).transpose(1, 2)
+    return out
+
+
+@pytest.mark.parametrize("shape,hk", [((2, 256, 4, 64), 1), ((1, 192, 2, 32), 2)])
+def test_causal_tile_skipping_is_exact(shape, hk):
+    q, k, v = map(torch.from_numpy, qkv(shape, hk=hk, seed=21))
+    skipped = tile_algorithm(q, k, v, causal=True, skip=True)
+    visited = tile_algorithm(q, k, v, causal=True, skip=False)
+    assert torch.equal(skipped, visited)
+    np.testing.assert_allclose(skipped.numpy(), _f32(ref.flash_attention_ref(q, k, v)),
+                               atol=2e-5)
+    full = tile_algorithm(q, k, v, causal=False, skip=True)
+    np.testing.assert_allclose(full.numpy(),
+                               _f32(ref.flash_attention_ref(q, k, v, causal=False)), atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["cpu", "ragged", "heads", "dtype", "head_dim"])
+def test_kernel_wrapper_refuses_what_it_cannot_launch(bad):
+    """The wrapper launches its kernel or raises: never a CPU computation,
+    never a silently unsupported shape."""
+    q, k, v = map(torch.from_numpy, qkv((1, 128, 4, 64), hk=2))
+    if bad == "ragged":
+        q, k, v = q[:, :96], k[:, :96], v[:, :96]
+    elif bad == "heads":
+        k, v = k[:, :, :1].expand(1, 128, 3, 64), v[:, :, :1].expand(1, 128, 3, 64)
+    elif bad == "dtype":
+        q = q.double()
+    elif bad == "head_dim":
+        q, k, v = q[..., :48], k[..., :48], v[..., :48]
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention.flash_attention_kernel(q, k, v)
+    assert flash_attention.launches == 0
