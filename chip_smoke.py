@@ -24,11 +24,14 @@ of which fails the run with a non-zero exit:
    torch's sync debug mode sees them, must equal the engine's count;
 6. sparse cell -- webspam-shaped slabs made on the card (252,000 training
    and 63,000 test rows, p = 2^20 features at webspam's density,
-   ``GLM_WEBSPAM``): ``slab_gram`` and ``slab_spmv`` against their plain
-   versions and the densify oracles at the cell's shapes and on
-   adversarial slabs (duplicate rows, sentinels anywhere with values
-   parked on them, empty features, unsorted slots), each bit-equal
-   across two launches;
+   ``GLM_WEBSPAM``): ``slab_gram`` (which gathers its operands itself)
+   and ``slab_spmv`` against their plain versions (for ``slab_gram`` the
+   plain path's sentinel-zeroed gathers through the match join) and the
+   densify oracles at the cell's shapes, on adversarial slabs (duplicate
+   rows, sentinels anywhere with values parked on them, empty features,
+   unsorted slots) and, for ``slab_gram``, on a tile whose row-sorted
+   order does not fit in shared memory, each bit-equal across two
+   launches;
 7. sparse path -- ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).fit(
    SlabDesign(...), y, lam)`` with lam = lambda_max / 16 in both cycle
    modes: the strategy picks the slab-native solver, status OK, monotone
@@ -36,7 +39,8 @@ of which fails the run with a non-zero exit:
    mode's tile kernel each launched at least once per outer iteration,
    host syncs = iterations + 2 (one entry read of the slabs' largest
    row), held-out accuracy through ``decision_function`` on the test
-   slabs, fit wall, ms per iteration and peak memory;
+   slabs, fit wall, ms per iteration and peak memory (the profile phase
+   counts the device launches per tile step);
 8. sparse agreement -- an 8192 x 4096 slab fit on the card against the
    same fit on the CPU, both slab-native, and one ``densify=True`` fit on
    both: relative objective gaps < 1e-4, and after a fixed 8 iterations
@@ -517,14 +521,25 @@ def phase_sparse_kernels(torch, gen, cell):
         check(same, f"{name} {label}: two launches differ")
         errs[name] = max(errs[name], e)
 
-    # slab_gram at a tile step of the cell: (M, T, K) with sorted slots
+    # slab_gram at a tile step of the cell: (M, T, K) with sorted slots and
+    # the tile's row-sorted order, as the solve calls it; the kernel
+    # gathers its operands itself, the plain path's gathers feed the join
     safe, va, wv, cva = ops._sentinel_zeroed(R, V, w, r, n)
-    got = slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n, rows_sorted=True)
-    again = slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n, rows_sorted=True)
+    live = R < n
+    dup = bool((live[..., 1:] & (R[..., 1:] == R[..., :-1])).any())
+    check(not dup, "the cell's tile should have no duplicate rows within a feature")
+    got = slab_gram.slab_gram_kernel(R, V, w, r, rows_sorted=True, order=order)
+    again = slab_gram.slab_gram_kernel(R, V, w, r, rows_sorted=True, order=order)
     plain = ref.slab_gram_join(safe, wv, va, cva)
     torch.cuda.synchronize()
-    hold("slab_gram", f"cell tile M={M} T={T} K={K}", got, plain,
-         oracle=ref.slab_gram_ref(R, V, w, r), again=again)
+    hold("slab_gram", f"cell tile M={M} T={T} K={K} (gathers fused, no duplicates)", got,
+         plain, oracle=ref.slab_gram_ref(R, V, w, r), again=again)
+    # the order the wrapper builds (for callers that pass none) gives the same
+    built = slab_gram.slab_gram_kernel(R, V, w, r, rows_sorted=True)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, built)),
+          "slab_gram with its own order differs from slab_gram with the layout's")
+    del safe, va, wv, cva, live, built
     # slab_spmv at the same tile step: r -= X_F d for every block at once
     got = slab_spmv.slab_spmv_kernel(order, V, d, r.clone(), n_loc=n, sign=-1.0)
     again = slab_spmv.slab_spmv_kernel(order, V, d, r.clone(), n_loc=n, sign=-1.0)
@@ -557,6 +572,23 @@ def phase_sparse_kernels(torch, gen, cell):
     hold("slab_gram", "adversarial (duplicates, sentinels with values, empty, unsorted)",
          got, ref.slab_gram_join(sa[0], sa[2], sa[1], sa[3]),
          oracle=ref.slab_gram_ref(ra, vla, wa, rra), again=again)
+    # a tile whose row-sorted order does not fit in shared memory (the
+    # kernel keeps it in global scratch), duplicate rows and sentinels
+    nw = 20_000
+    rw = torch.sort(torch.randint(0, nw, (3, 96, 300), generator=gen, device="cuda",
+                                  dtype=torch.int32), dim=-1).values
+    rw[..., -3:] = nw
+    vw = torch.randn(3, 96, 300, generator=gen, device="cuda")
+    ww = 0.05 + 0.2 * torch.rand(nw, generator=gen, device="cuda")
+    rrw = torch.randn(3, nw, generator=gen, device="cuda")
+    check(slab_gram._scratch_ints(3, 96, 300) > 0, "the wide tile should take the scratch path")
+    sw = ops._sentinel_zeroed(rw, vw, ww, rrw, nw)
+    got = ops.slab_gram(rw, vw, ww, rrw, rows_sorted=True)
+    again = ops.slab_gram(rw, vw, ww, rrw, rows_sorted=True)
+    hold("slab_gram", "wide tile T=96 K=300 (order in global scratch, duplicates)", got,
+         ref.slab_gram_join(sw[0], sw[2], sw[1], sw[3]),
+         oracle=ref.slab_gram_ref(rw, vw, ww, rrw), again=again)
+    del rw, vw, ww, rrw, sw
     got = ops.slab_spmv(ra, vla, da, n_loc=na)
     again = ops.slab_spmv(ra, vla, da, n_loc=na)
     dva = torch.where(ra < na, vla, 0.0) * da[..., None]
@@ -566,8 +598,7 @@ def phase_sparse_kernels(torch, gen, cell):
     got = ops.slab_residual_update(rra.clone(), ra, vla, da)
     hold("slab_spmv", "adversarial residual update", (got,),
          (rra - ref.slab_spmv_scatter(ra.clamp_max(na), dva, na),))
-    inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, safe=safe, wv=wv, va=va,
-                  cva=cva, n=n)
+    inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, n=n)
     del lay
     return errs, inputs
 
@@ -951,11 +982,15 @@ def profile_prefill(torch, lm_inputs, card):
 
 def sparse_time_rows(torch, inp):
     """Rows 4 and 5 of the kernel table: the kernel, its plain version and
-    one PyTorch library call on the inputs of one tile step of the cell."""
-    from repro_torch.kernels import ref, slab_gram, slab_spmv
+    one PyTorch library call on the inputs of one tile step of the cell.
+    ``slab_gram``'s kernel and plain version include the gathers of w and
+    r; the library call (a CSR x CSR product) starts from gathered
+    operands, so its time leaves them out."""
+    from repro_torch.kernels import ops, ref, slab_gram, slab_spmv
 
     R, V, d, r, order, n = inp["R"], inp["V"], inp["d"], inp["r"], inp["order"], inp["n"]
-    safe, wv, va, cva = inp["safe"], inp["wv"], inp["va"], inp["cva"]
+    w = inp["w"]
+    safe, va, wv, cva = ops._sentinel_zeroed(R, V, w, r, n)
     B, T, K = R.shape
     live = safe < n
     # block-diagonal CSR forms of the M tiles: (diag(w) X_F)^T and X_F
@@ -967,25 +1002,33 @@ def sparse_time_rows(torch, inp):
     X_csr = torch.sparse_coo_tensor(torch.stack([ex, ft]), va[live], (B * n, B * T)
                                     ).coalesce().to_sparse_csr()
     d_flat = d.reshape(-1).contiguous()
-    # matched slot pairs (the merge join's useful products) and touched rows
-    key = bi * n + safe[live].long()
-    per_row = torch.bincount(key, minlength=B * n)
+    # matched slot pairs (the join's useful products) and touched rows
+    per_row = torch.bincount(ex, minlength=B * n)
     pairs = int((per_row.double() ** 2).sum())
     touched = int((per_row > 0).sum())
     n_live = int(live.sum())
+    del safe, va, wv, cva, live, bi, ex, ft, per_row
     r_work = r.clone()
     dv = torch.where(R < n, V, 0.0) * d[..., None]
-    gram_bytes = 4 * 4 * B * T * K + 4 * (B * T * T + B * T)
+    # slab_gram reads rows, values and the tile's order (rows_s, perm) once
+    # per slot, w and r once per live slot, and writes G and c
+    gram_bytes = 4 * 4 * B * T * K + 8 * n_live + 4 * (B * T * T + B * T)
     spmv_bytes = 3 * 4 * B * T * K + 4 * B * T + 8 * touched
+
+    def gram_plain():
+        safe, va, wv, cva = ops._sentinel_zeroed(R, V, w, r, n)
+        return ref.slab_gram_join(safe, wv, va, cva)
+
     return [
         ("slab_gram", "cuda", "src/repro_torch/kernels/csrc/slab_gram.cu",
          "src/repro/kernels/sparse_slab.py:81",
-         lambda: slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n, rows_sorted=True),
-         lambda: ref.slab_gram_join(safe, wv, va, cva),
+         lambda: slab_gram.slab_gram_kernel(R, V, w, r, rows_sorted=True, order=order),
+         gram_plain,
          lambda: torch.sparse.mm(wX_T, X_csr),
-         gram_bytes, 2 * pairs + B * T * K,
+         gram_bytes, 2 * pairs + B * T * K + 3 * n_live,
          f"match join T^2 K^2 M = {T * T * K * K * B:.3g} compare-FMA; "
-         f"{pairs} matched slot pairs; M={B} T={T} K={K}, {n_live} live slots"),
+         f"{pairs} matched slot pairs; M={B} T={T} K={K}, {n_live} live slots; kernel and "
+         f"plain include the gathers of w and r, the library call does not"),
         ("slab_spmv", "cuda", "src/repro_torch/kernels/csrc/slab_spmv.cu",
          "src/repro/kernels/sparse_slab.py:126",
          lambda: slab_spmv.slab_spmv_kernel(order, V, d, r_work, n_loc=n, sign=-1.0),
@@ -1063,7 +1106,7 @@ def _kind(name: str) -> str:
         return "slab_gram kernel"
     if "slab_spmv_kernel" in low:
         return "slab_spmv kernel"
-    if "flash_attention_kernel" in low:
+    if "flash_bf16_kernel" in low or "flash_f32_kernel" in low:
         return "flash_attention kernel"
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas", "dot_kernel",
                               "nvjet")):
@@ -1119,9 +1162,11 @@ def report_profile(label: str, what: str, rows, busy, wall_ms, card):
 
 
 def profile_fit(torch, label: str, fit, card):
-    """Device time by kernel over one fit (torch.profiler)."""
+    """Device time by kernel over one fit (torch.profiler); returns the
+    fit's result and the profile's rows."""
     res, rows, busy, wall_ms = device_profile(torch, label, fit)
     report_profile(label, f"{res.n_iters} iters", rows, busy, wall_ms, card)
+    return res, rows
 
 
 def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
@@ -1139,8 +1184,18 @@ def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
     (rows, vals, y), _ = cell
     opts = DGLMNETOptions(**dict(SPARSE_OPTS, max_iters=3))
     est = LogisticL1(opts, mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
-    profile_fit(torch, "sparse sequential (3 iterations)",
-                lambda: est.fit(SlabDesign(rows, vals, y.shape[0]), y, sparse_lam), card)
+    label = "sparse sequential (3 iterations)"
+    res, prof = profile_fit(torch, label, lambda: est.fit(
+        SlabDesign(rows, vals, y.shape[0]), y, sparse_lam), card)
+    # device launches per tile step: all of the fit's, layout and
+    # per-iteration work included, over its iterations x tile steps
+    steps = res.n_iters * (rows.shape[0] // (SPARSE_M * opts.tile))
+    total = sum(count for _, count, _ in prof)
+    print(f"[profile] {label}: {total} device launches over {steps} tile steps: "
+          f"{total / steps:.2f} per tile step")
+    for _, count, name in sorted(prof, key=lambda row: -row[1]):
+        if count >= steps:
+            print(f"[profile] {label}:   {count / steps:.2f} per tile step: {name[:90]}")
     del rows, vals, y
     profile_prefill(torch, lm_inputs, card)
 

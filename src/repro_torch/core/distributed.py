@@ -7,8 +7,8 @@ The reference runs the mesh's ``model`` axis (the M feature blocks) under
 M blocks advance together, one kernel launch for all of them:
 
 * :func:`layout_slabs` -- (p_pad, K) slabs -> (M, nt, T, K) tiles, each
-  feature's slots sorted by row (``slab_gram``'s merge join needs it),
-  plus each tile's row-sorted slot order (``slab_spmv``'s segmented sum).
+  feature's slots sorted by row, plus each tile's row-sorted slot order
+  (``slab_gram`` needs both, ``slab_spmv``'s segmented sum the order).
   Built once per fit, as ``layout_blocks`` lays out dense tiles;
 * :func:`local_subproblem_sparse` -- one CD cycle over the tiles: per
   tile step one ``slab_gram``, one tile-cycle kernel and one
@@ -120,12 +120,11 @@ def local_subproblem_sparse(lay: SlabLayout, w, r, beta, lam, *, tile: int,
     dbeta = torch.zeros_like(beta)
     for t in range(nt):
         rows, vals = lay.rows[:, t], lay.vals[:, t]
-        G, c = kops.slab_gram(rows, vals, w, r, rows_sorted=True)
+        order = SlabOrder(lay.order.rows_s[:, t], lay.order.perm[:, t])
+        G, c = kops.slab_gram(rows, vals, w, r, rows_sorted=True, order=order)
         sl = slice(t * tile, (t + 1) * tile)
         d = tile_solver(G, c, beta[:, sl], dbeta[:, sl], lam, nu)
-        kops.slab_residual_update(
-            r, rows, vals, d,
-            order=SlabOrder(lay.order.rows_s[:, t], lay.order.perm[:, t]))
+        kops.slab_residual_update(r, rows, vals, d, order=order)
         dbeta[:, sl] += d
     return dbeta, r
 

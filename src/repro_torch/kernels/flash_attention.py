@@ -12,11 +12,13 @@ Query head h reads KV head h // (H / Hk), what the reference gets from
 ``jnp.repeat(k, H // Hk, axis=2)``, without building the expanded K/V.
 
 Bound on the H100: operations (4 S^2 D B H FLOP, half of it under
-``causal``, against about 2 bytes per element of q, k, v, o). This first
-kernel runs float32 FMA on the CUDA cores, one block per 64-row query
-tile and head, K/V tiles staged in shared memory and the softmax state in
-registers; the tensor-core (bf16 mma) path is later work. The plain
-version is ``ref.flash_attention_ref``.
+``causal``, against about 2 bytes per element of q, k, v, o). One block
+per 64-row query tile and head. bfloat16 runs on the tensor cores: a
+producer warp fills a two-stage ring of K/V tiles with TMA, one consumer
+warpgroup runs Q K^T and P V as ``wgmma`` with float32 accumulation, the
+probabilities split into two bf16 halves (hi + lo) so that P V stays as
+exact as the reference's float32 product. float32 runs FMA on the CUDA
+cores. The plain version is ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ launches = 0
 BLOCK = 64                       # query rows per block and keys per KV tile
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_TMA_ENCODE_FAILED = -1              # the C entry point's code: no launch
 
 _lib = None
 
@@ -77,6 +80,30 @@ def check_operands(q, k, v):
     return B, S, H, Hk, D
 
 
+def _tma_ready(t):
+    """``t`` as the bf16 route's tensor maps can take it: 16-byte aligned
+    data and nonzero strides that are 16-byte multiples (a contiguous copy
+    otherwise, the only copy the route makes)."""
+    if t.data_ptr() % 16 == 0 and all((s % 8 == 0 and s > 0) or n == 1
+                                       for s, n in zip(t.stride()[:3], t.shape[:3])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(*ts):
+    """Batch, sequence and head strides of each tensor, in elements; an
+    axis of length 1 gets the stride a contiguous tensor would have (it is
+    never stepped along, and a tensor map wants a 16-byte multiple)."""
+    out = []
+    for t in ts:
+        for i in range(3):
+            n = 1
+            for size in t.shape[i + 1:]:
+                n *= size
+            out.append(n if t.shape[i] == 1 else t.stride(i))
+    return (ctypes.c_longlong * len(out))(*out)
+
+
 def flash_attention_kernel(q, k, v, *, causal: bool = True):
     """Attention of q (B, S, H, D) over k, v (B, S, Hk, D) on the card,
     read in place through their strides; returns a new (B, S, H, D)
@@ -84,11 +111,15 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True):
     global launches
     B, S, H, Hk, D = check_operands(q, k, v)
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in t.stride()[:3]))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
-                      B, S, H, Hk, D, int(causal), 1.0 / math.sqrt(D), _DTYPES[q.dtype],
-                      stream)
+    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      _strides(q, k, v, o), B, S, H, Hk, D, int(causal),
+                      1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
+    if err == _TMA_ENCODE_FAILED:
+        raise RuntimeError("flash_attention: an operand's layout cannot be described "
+                           "as a TMA tensor map")
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches += 1

@@ -128,20 +128,21 @@ def _sentinel_zeroed(rows, vals, w, r, n_loc: int):
     return rows.clamp_max(n_loc), va, wv, cva
 
 
-def slab_gram(rows, vals, w, r, *, rows_sorted: bool = False):
+def slab_gram(rows, vals, w, r, *, rows_sorted: bool = False, order: SlabOrder = None):
     """Weighted Gram tile and correlation straight from a feature slab.
 
     rows/vals (..., T, K), local example rows with sentinel n_loc
     (= ``w.shape[0]``); r (..., n_loc). Returns ``(G (..., T, T),
     c (..., T))`` with G = X_F^T diag(w) X_F and c = X_F^T (w r), with no
-    (n_loc, T) densify. ``rows_sorted`` promises each feature's slots in
-    row order (the card's kernel needs it and otherwise sorts)."""
+    (n_loc, T) densify. On the card one launch gathers and joins;
+    ``rows_sorted`` promises each feature's slots in row order and
+    ``order`` is the tile's :func:`slab_order` (the kernel needs both and
+    otherwise builds them). Off the card the gathers feed the match join."""
     n_loc = w.shape[0]
-    on_cuda = _on_cuda(rows, vals, w, r)
+    if _on_cuda(rows, vals, w, r):
+        return _slab_gram.slab_gram_kernel(rows, vals, w, r, rows_sorted=rows_sorted,
+                                           order=order)
     safe, va, wv, cva = _sentinel_zeroed(rows, vals, w, r, n_loc)
-    if on_cuda:
-        return _slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=n_loc,
-                                           rows_sorted=rows_sorted)
     return ref.slab_gram_join(safe, wv, va, cva)
 
 

@@ -13,6 +13,11 @@ the same numpy inputs.
   the KV tiles wholly above the diagonal under ``causal`` is exact (bit
   for bit the same as visiting them), and the algorithm matches the plain
   version.
+* The bfloat16 route's arithmetic, emulated here: probabilities split
+  into bf16 hi + lo per 64-key tile keep every output within half a bf16
+  ulp plus 2e-5 (2^-8 |o| + 2e-5) of the float32 plain result at S = 1024,
+  the bound ``chip_smoke.py`` holds the kernel to; probabilities rounded
+  to bf16 alone break it, so the bound can tell the two apart.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain version); here its wrapper must refuse CPU tensors.
@@ -178,6 +183,79 @@ def test_causal_tile_skipping_is_exact(shape, hk):
     full = tile_algorithm(q, k, v, causal=False, skip=True)
     np.testing.assert_allclose(full.numpy(),
                                _f32(ref.flash_attention_ref(q, k, v, causal=False)), atol=2e-5)
+
+
+def bf16_route(q, k, v, *, causal, split=True, block=64):
+    """The bfloat16 route of the card kernel in float32 PyTorch: online
+    softmax per 64-key tile on the raw scores, p = 2^(s c - m c) with c =
+    scale * log2(e), and P V with P rounded to bf16 as hi + lo (``split``)
+    or as hi alone; the output cast to bf16 once, round to nearest."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    q, k, v = (t.float() for t in (q, k, v))
+    k = k.repeat_interleave(g, dim=2)
+    v = v.repeat_interleave(g, dim=2)
+    c = (1.0 / d ** 0.5) * 1.4426950408889634
+    out = torch.empty(b, s, h, d)
+    for q0 in range(0, s, block):
+        qt = q[:, q0:q0 + block].transpose(1, 2)
+        m = torch.full((b, h, block, 1), -1e30)
+        l = torch.zeros(b, h, block, 1)
+        acc = torch.zeros(b, h, block, d)
+        for kt in range(q0 // block + 1 if causal else s // block):
+            k0 = kt * block
+            x = qt @ k[:, k0:k0 + block].permute(0, 2, 3, 1)
+            if causal:
+                rows = torch.arange(q0, q0 + block)[:, None]
+                x = torch.where(rows >= torch.arange(k0, k0 + block)[None, :], x, -1e30)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            p = torch.exp2(x * c - m_new * c)
+            alpha = torch.exp2(m * c - m_new * c)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            vt = v[:, k0:k0 + block].transpose(1, 2)
+            hi = p.bfloat16().float()
+            acc = acc * alpha + hi @ vt
+            if split:
+                acc = acc + (p - hi).bfloat16().float() @ vt
+            m = m_new
+        out[:, q0:q0 + block] = (acc / l.clamp_min(1e-30)).transpose(1, 2)
+    return out.bfloat16()
+
+
+def _bf16_bound_ratio(split):
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in qkv((1, 1024, 4, 64), hk=1, seed=14))
+    got = bf16_route(q, k, v, causal=True, split=split).float()
+    p32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    return float(((got - p32).abs() / (2.0 ** -8 * p32.abs() + 2e-5)).max())
+
+
+def test_bf16_route_split_probabilities_stay_within_half_an_ulp():
+    """P = P_hi + P_lo in bf16 keeps the product as exact as float32: every
+    output within 2^-8 |o| + 2e-5 of the float32 plain result."""
+    assert _bf16_bound_ratio(split=True) <= 1.0
+
+
+def test_bf16_route_rounded_probabilities_break_the_bound():
+    """Rounding P to bf16 alone (2^-9 relative per probability) puts
+    outputs near 0 past 2e-5: the card check would catch that kernel."""
+    assert _bf16_bound_ratio(split=False) > 1.0
+
+
+def test_bf16_operands_meet_the_tensor_map_rules():
+    """bf16 operands reach the kernel with 16-byte aligned data and nonzero
+    strides (a misaligned or broadcast view is copied), and an axis of
+    length 1 is described with the stride a contiguous tensor would
+    have."""
+    base = torch.zeros(1, 128, 2, 72, dtype=torch.bfloat16)
+    view = base[..., 4:68]                      # data 8 bytes past alignment
+    fixed = flash_attention._tma_ready(view)
+    assert fixed.is_contiguous() and torch.equal(fixed, view)
+    aligned = base[..., 8:72]
+    assert flash_attention._tma_ready(aligned) is aligned
+    shared = base[:, :, :1, 8:72].expand(1, 128, 3, 64)  # one head's data three times
+    assert flash_attention._tma_ready(shared).stride(2) == 64
+    one = torch.zeros(1, 64, 1, 32).as_strided((1, 64, 1, 32), (4, 32, 3, 1))
+    assert list(flash_attention._strides(one)) == [64 * 32, 32, 32]
 
 
 @pytest.mark.parametrize("bad", ["cpu", "ragged", "heads", "dtype", "head_dim"])

@@ -17,7 +17,9 @@ the same numpy inputs:
 * the mesh description.
 
 The CUDA kernels run only on the card (``chip_smoke.py``); here their
-wrappers must refuse CPU tensors.
+wrappers must refuse CPU tensors and wrong types, and ``slab_gram``'s
+algorithm is written out in numpy and held against the plain path and
+the earlier merge join's sum order.
 """
 import io
 
@@ -232,17 +234,121 @@ def test_slab_order_sorts_each_batch_row():
     assert bool((order.rows_s[:, 1:] >= order.rows_s[:, :-1]).all())
 
 
-@pytest.mark.parametrize("wrapper", ["slab_gram", "slab_spmv"])
+def _kernel_run_walk(rows, vals, w, r):
+    """The card kernel's algorithm (``csrc/slab_gram.cu``) in numpy float32:
+    each feature's slots sorted by row, the tile's slots in a stable
+    row-sorted order, and per feature a its live slots in order, each
+    adding w[x] v * v' for every slot (b, kb) of the run of its row x in
+    that order (a slot alone in its run: its own product, to G[a, a]),
+    a's slots outer and b's inner; c in slot order."""
+    t, k = rows.shape
+    n = w.shape[0]
+    idx = np.argsort(np.minimum(rows, n), axis=-1, kind="stable")
+    rows = np.take_along_axis(np.minimum(rows, n), idx, -1)
+    vals = np.take_along_axis(vals, idx, -1)
+    flat = rows.reshape(-1)
+    perm = np.argsort(flat, kind="stable")
+    pos = np.empty_like(perm)
+    pos[perm] = np.arange(perm.size)
+    G = np.zeros((t, t), np.float32)
+    c = np.zeros(t, np.float32)
+    for a in range(t):
+        for ka in range(k):
+            x = rows[a, ka]
+            if x < n:
+                cva = np.float32(vals[a, ka] * np.float32(w[x] * r[x]))
+            else:
+                cva = np.float32(0.0)
+            c[a] = np.float32(c[a] + cva)
+        for ka in range(k):
+            x = rows[a, ka]
+            if x >= n:
+                break
+            wa = np.float32(w[x] * vals[a, ka])
+            j = pos[a * k + ka]
+            if ((j == 0 or flat[perm[j - 1]] != x)
+                    and (j + 1 == perm.size or flat[perm[j + 1]] != x)):
+                G[a, a] = np.float32(G[a, a] + np.float32(wa * vals[a, ka]))
+                continue
+            while j > 0 and flat[perm[j - 1]] == x:
+                j -= 1
+            while j < perm.size and flat[perm[j]] == x:
+                b, kb = divmod(int(perm[j]), k)
+                G[a, b] = np.float32(G[a, b] + np.float32(wa * vals[b, kb]))
+                j += 1
+    return G, c, rows, vals
+
+
+def _merge_walk(rows, vals, w):
+    """A merge join of each pair of row-sorted slot lists, in numpy float32."""
+    t, k = rows.shape
+    n = w.shape[0]
+    G = np.zeros((t, t), np.float32)
+    for a in range(t):
+        for b in range(t):
+            ia = ib = 0
+            while ia < k and ib < k and rows[a, ia] < n and rows[b, ib] < n:
+                x, y = rows[a, ia], rows[b, ib]
+                if x != y:
+                    ia, ib = (ia + 1, ib) if x < y else (ia, ib + 1)
+                    continue
+                ea, eb = ia, ib
+                while ea < k and rows[a, ea] == x:
+                    ea += 1
+                while eb < k and rows[b, eb] == x:
+                    eb += 1
+                for sa in range(ia, ea):
+                    for ub in range(ib, eb):
+                        G[a, b] = np.float32(G[a, b] + np.float32(
+                            np.float32(w[x] * vals[a, sa]) * vals[b, ub]))
+                ia, ib = ea, eb
+    return G
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_slab_gram_kernel_algorithm(kind):
+    """The card kernel's run walk over the tile's row-sorted order gives
+    the plain path's (G, c) and sums in a merge join's order: bit for bit
+    the merge join's G, duplicates, sentinels and empty features
+    included."""
+    rows, vals, w, r, _ = slab_case(kind)
+    G, c, rows_s, vals_s = _kernel_run_walk(rows, vals, w, r)
+    pG, pc = ops.slab_gram(_t(rows), _t(vals), _t(w), _t(r))
+    _close(G, pG)
+    _close(c, pc)
+    np.testing.assert_array_equal(G, _merge_walk(rows_s, vals_s, w))
+
+
+@pytest.mark.parametrize("wrapper", ["slab_gram", "slab_spmv", "slab_gram rows int64",
+                                     "slab_gram vals float64", "slab_gram w float64"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
-    """No fallback: the kernels' wrappers take CUDA tensors or raise."""
+    """No fallback: the kernels' wrappers take CUDA tensors of their types
+    or raise."""
     rows, vals, w, r, d = (_t(a) for a in slab_case("plain"))
+    if wrapper.startswith("slab_gram "):
+        rows = rows.long() if "rows" in wrapper else rows
+        vals = vals.double() if "vals" in wrapper else vals
+        w = w.double() if " w " in wrapper else w
+        with pytest.raises(TypeError):
+            slab_gram.slab_gram_kernel(rows, vals, w, r, rows_sorted=True)
+        assert slab_gram.launches == 0
+        return
     with pytest.raises(ValueError, match="CUDA"):
         if wrapper == "slab_gram":
-            safe, va, wv, cva = ops._sentinel_zeroed(rows, vals, w, r, w.shape[0])
-            slab_gram.slab_gram_kernel(safe, wv, va, cva, n_loc=w.shape[0])
+            slab_gram.slab_gram_kernel(rows, vals, w, r, rows_sorted=True,
+                                       order=slab_spmv.slab_order(rows))
         else:
             slab_spmv.slab_spmv_kernel(slab_spmv.slab_order(rows), vals, d,
                                        torch.zeros(w.shape[0]), n_loc=w.shape[0], sign=1.0)
+
+
+def test_slab_gram_cpu_branch_ignores_the_order():
+    """Off the card the gathers and the match join need no order: passing
+    the tile's order changes nothing."""
+    rows, vals, w, r, _ = (_t(a) for a in slab_case("adversarial"))
+    G, c = ops.slab_gram(rows, vals, w, r)
+    Go, co = ops.slab_gram(rows, vals, w, r, order=slab_spmv.slab_order(rows))
+    assert torch.equal(G, Go) and torch.equal(c, co)
 
 
 # ---------------------------------------------------------------------------
