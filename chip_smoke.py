@@ -9,9 +9,16 @@ of which fails the run with a non-zero exit:
 2. build -- compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) and the Triton kernel;
 3. kernels -- each kernel against its plain PyTorch version on the card at
-   the main paths' shapes (atol = rtol = 1e-5; the NLL to 1e-5 relative),
-   ``blocked_cd`` on a tile where modes 0, 1 and 2 all occur, and
-   ``blocked_cd`` at B=1 bit-equal to ``gram_cd``;
+   the main paths' shapes (atol = rtol = 1e-5; the NLL to 1e-5 relative);
+   ``gram_cd`` at M=16 and F = 64, 128 (G resident in shared memory), 256,
+   1024 (G streamed through a ring) and 50 (no TMA), two launches
+   bit-equal; ``blocked_cd`` at B = 16 and 8 on a tile where modes 0, 1
+   and 2 all occur, at F = 256 and at B = 10, its in-kernel modes
+   (``modes_out``) equal to ``blocked_cycle_modes`` or, where not, the
+   block's ratio within 4 ulp of the threshold, and a tile exactly at the
+   threshold; both at B=1 bit-equal to each other at F = 128 and 256; both
+   on strided beta/dbeta0 views bit-equal to contiguous inputs; the tile
+   kernels' division bit-equal to IEEE division on 2^32 pairs;
 4. main path -- ``LogisticL1(...).fit(DenseDesign(X), y, lam)`` at the
    paper's epsilon scale (320,000 x 2000 training rows, generated on the
    card), M=16 blocks of one 128-wide tile, lam = lambda_max / 16, in both
@@ -40,7 +47,7 @@ of which fails the run with a non-zero exit:
    host syncs = iterations + 2 (one entry read of the slabs' largest
    row), held-out accuracy through ``decision_function`` on the test
    slabs, fit wall, ms per iteration and peak memory (the profile phase
-   counts the device launches per tile step);
+   counts the device launches per tile step of each mode);
 8. sparse agreement -- an 8192 x 4096 slab fit on the card against the
    same fit on the CPU, both slab-native, and one ``densify=True`` fit on
    both: relative objective gaps < 1e-4, and after a fixed 8 iterations
@@ -68,8 +75,9 @@ of which fails the run with a non-zero exit:
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
 13. profile -- device time by kernel (torch.profiler) for one dense fit
-   per cycle mode, a 3-iteration sparse fit, one LM prefill and 8 decode
-   steps after it; a profile with no device time fails the run.
+   per cycle mode, a 3-iteration sparse fit per cycle mode (with device
+   launches per tile step), one LM prefill and 8 decode steps after it; a
+   profile with no device time fails the run.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
@@ -259,40 +267,122 @@ def phase_kernels(torch, gen):
         check(ok, f"logistic_stats {label} disagrees with its plain version")
         errs.setdefault("logistic_stats", e)
 
-    for M, F in ((16, 128), (1, 256), (16, 64)):
+    # gram_cd: resident tiles (F <= 128), the ring (F = 256, 1024), and
+    # F = 50, whose rows are not whole 16-byte units (plain loads, no TMA)
+    for M, F in ((16, 128), (1, 256), (16, 64), (16, 256), (16, 1024), (16, 50)):
         G, c, beta, db0, lam = tile_inputs(torch, gen, M, F)
+        plan = gram_cd.chunk_plan(F, 3)
         d = gram_cd.gram_cd_kernel(G, c, beta, db0, lam, 1e-6)
+        again = gram_cd.gram_cd_kernel(G, c, beta, db0, lam, 1e-6)
         d0 = ref.gram_cd_ref(G, c, beta, db0, lam, 1e-6)
         torch.cuda.synchronize()
         e = max_err(d, d0)
         ok = torch.allclose(d, d0, rtol=TOL, atol=TOL)
-        print(f"[kernels] gram_cd M={M} F={F}: max|dd| {e:.3g}, "
-              f"nnz {int((d0 + beta + db0 != 0).sum())}/{M * F} -> {'ok' if ok else 'MISMATCH'}")
+        same = torch.equal(d, again)
+        print(f"[kernels] gram_cd M={M} F={F} ({'resident' if plan.resident else 'ring'}: "
+              f"{plan.chunks} chunks of {plan.rows} rows, {plan.stages} stages, "
+              f"{plan.smem} B shared): max|dd| {e:.3g}, nnz {int((d0 + beta + db0 != 0).sum())}"
+              f"/{M * F}, two launches {'bit-equal' if same else 'DIFFERENT'} "
+              f"-> {'ok' if ok and same else 'MISMATCH'}")
         check(ok, f"gram_cd M={M} F={F} disagrees with its plain version")
-        errs.setdefault("gram_cd", e)
+        check(same, f"gram_cd M={M} F={F}: two launches differ")
+        errs["gram_cd"] = max(errs.get("gram_cd", 0.0), e)
 
-    G, c, beta, db0, lam = tile_inputs(torch, gen, 16, 128, kind="modes")
-    modes = blocked_cycle_modes(G, 16)
-    seen = sorted(set(modes.flatten().tolist()))
-    d = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=16)
-    d0 = ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=16)
-    torch.cuda.synchronize()
-    e = max_err(d, d0)
-    ok = torch.allclose(d, d0, rtol=TOL, atol=TOL)
-    print(f"[kernels] blocked_cd M=16 F=128 B=16 modes {seen}: max|dd| {e:.3g} "
-          f"-> {'ok' if ok else 'MISMATCH'}")
-    check(seen == [0, 1, 2], f"the modes tile should exercise modes 0, 1, 2; got {seen}")
-    check(ok, "blocked_cd disagrees with its plain version")
-    errs["blocked_cd"] = e
+    # blocked_cd: the modes tile (modes 0, 1, 2 at B = 16), B = 8 on it,
+    # the ring at F = 256, and a B that does not divide 32 at F = 50
+    for M, F, B, kind in ((16, 128, 16, "modes"), (16, 128, 8, "modes"),
+                          (16, 256, 16, "modes"), (16, 50, 10, "random")):
+        G, c, beta, db0, lam = tile_inputs(torch, gen, M, F, kind=kind)
+        modes_out = torch.full((M, F // B), -1, dtype=torch.int32, device="cuda")
+        d = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=B,
+                                         modes_out=modes_out)
+        again = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=B)
+        d0 = ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=B)
+        modes = blocked_cycle_modes(G, B)
+        torch.cuda.synchronize()
+        seen = sorted(set(modes.flatten().tolist()))
+        e = max_err(d, d0)
+        ok = torch.allclose(d, d0, rtol=TOL, atol=TOL)
+        same = torch.equal(d, again)
+        print(f"[kernels] blocked_cd M={M} F={F} B={B} modes {seen}: max|dd| {e:.3g}, two "
+              f"launches {'bit-equal' if same else 'DIFFERENT'} -> {'ok' if ok and same else 'MISMATCH'}")
+        check_modes(torch, G, B, modes_out, modes, f"M={M} F={F} B={B}")
+        if (F, B) == (128, 16):
+            check(seen == [0, 1, 2], f"the modes tile should exercise modes 0, 1, 2; got {seen}")
+        check(ok, f"blocked_cd F={F} B={B} disagrees with its plain version")
+        check(same, f"blocked_cd F={F} B={B}: two launches differ")
+        errs["blocked_cd"] = max(errs.get("blocked_cd", 0.0), e)
 
+    # a tile exactly at the safeguard's threshold (nu = 0): ratio 0.9f, the
+    # full Jacobi step; one ulp above it, the halves
+    t = torch.tensor(0.9, dtype=torch.float32)
+    for off, want in ((t, 0), (torch.nextafter(t, torch.tensor(1.0)), 1)):
+        G = torch.tensor([[[1.0, float(off)], [float(off), 1.0]]], device="cuda")
+        modes_out = torch.full((1, 1), -1, dtype=torch.int32, device="cuda")
+        z = torch.zeros(1, 2, device="cuda")
+        blocked_cd.blocked_cd_kernel(G, z, z, z, 0.1, 0.0, block=2, modes_out=modes_out)
+        plain = int(blocked_cycle_modes(G, 2, nu=0.0)[0, 0])
+        got = int(modes_out[0, 0])
+        print(f"[kernels] blocked_cd threshold tile, off-diagonal {float(off)!r}: "
+              f"kernel mode {got}, plain mode {plain}")
+        check(got == want == plain, f"threshold tile: kernel mode {got}, plain {plain}, "
+              f"expected {want}")
+
+    for F in (128, 256):
+        G, c, beta, db0, lam = tile_inputs(torch, gen, 16, F)
+        d1 = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=1)
+        ds = gram_cd.gram_cd_kernel(G, c, beta, db0, lam, 1e-6)
+        torch.cuda.synchronize()
+        same = torch.equal(d1, ds)
+        print(f"[kernels] blocked_cd B=1 vs gram_cd F={F}: {'bit-equal' if same else 'DIFFERENT'}")
+        check(same, f"blocked_cd at B=1 is not bit-equal to gram_cd at F={F}")
+
+    # strided (M, F) operands, as the solve passes beta[:, sl] and dbeta[:, sl]
     G, c, beta, db0, lam = tile_inputs(torch, gen, 16, 128)
-    d1 = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=1)
-    ds = gram_cd.gram_cd_kernel(G, c, beta, db0, lam, 1e-6)
-    torch.cuda.synchronize()
-    same = torch.equal(d1, ds)
-    print(f"[kernels] blocked_cd B=1 vs gram_cd: {'bit-equal' if same else 'DIFFERENT'}")
-    check(same, "blocked_cd at B=1 is not bit-equal to gram_cd")
+    wide_b = torch.randn(16, 4 * 128, generator=gen, device="cuda")
+    wide_d = torch.randn(16, 3 * 128, generator=gen, device="cuda")
+    wide_b[:, 256:384] = beta
+    wide_d[:, 128:256] = db0
+    vb, vd = wide_b[:, 256:384], wide_d[:, 128:256]
+    for name, fn in (("gram_cd", gram_cd.gram_cd_kernel),
+                     ("blocked_cd", lambda *a: blocked_cd.blocked_cd_kernel(*a, block=16))):
+        same = torch.equal(fn(G, c, vb, vd, lam, 1e-6), fn(G, c, beta, db0, lam, 1e-6))
+        torch.cuda.synchronize()
+        print(f"[kernels] {name} on strided beta/dbeta0 views: "
+              f"{'bit-equal to contiguous' if same else 'DIFFERENT'}")
+        check(same, f"{name} on strided views differs from contiguous inputs")
+
+    # the step's division (three fused multiply-adds from 1/h) against IEEE
+    n_div = 2 ** 32
+    bad = gram_cd.division_mismatches(n_div, seed=1)
+    print(f"[kernels] tile CD division: {bad} of {n_div} pseudo-random pairs differ from "
+          f"__fdiv_rn")
+    check(bad == 0, f"the tile kernels' division differs from IEEE on {bad} pairs")
     return errs
+
+
+def check_modes(torch, G, B: int, got, plain, label: str):
+    """The kernel's modes (``modes_out``) must equal ``blocked_cycle_modes``;
+    where they differ, the block's Gershgorin ratio must lie within 4 ulp
+    of the threshold (the two sum |G_jk| in different orders)."""
+    from repro_torch.core.subproblem import DOM_TOL, _block_dominance
+
+    diff = got != plain
+    if not bool(diff.any()):
+        print(f"[kernels] blocked_cd {label}: in-kernel modes equal blocked_cycle_modes")
+        return
+    tol = torch.tensor(DOM_TOL, dtype=torch.float32)
+    ulp = float(torch.nextafter(tol, torch.tensor(1.0)) - tol)
+    rho_full = _block_dominance(G, B, 1e-6)
+    near = (rho_full - DOM_TOL).abs() <= 4 * ulp
+    if B % 2 == 0:
+        rho_half = _block_dominance(G, B // 2, 1e-6).reshape(*rho_full.shape, 2).amax(-1)
+        near |= (rho_half - DOM_TOL).abs() <= 4 * ulp
+    for m, b in diff.nonzero().tolist():
+        print(f"[kernels] blocked_cd {label}: block ({m}, {b}) kernel mode {int(got[m, b])}, "
+              f"plain {int(plain[m, b])}, rho {float(rho_full[m, b])!r} beside {DOM_TOL}")
+    check(bool(near[diff].all()), f"blocked_cd {label}: in-kernel modes differ from "
+          f"blocked_cycle_modes away from the threshold")
 
 
 def phase_main_path(torch):
@@ -1064,14 +1154,11 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
                  lambda: gram_cd.gram_cd_kernel(G, c, beta, db0, lam, 1e-6),
                  lambda: ref.gram_cd_ref(G, c, beta, db0, lam, 1e-6),
                  tile_bytes, 2 * M * F * F + 10 * M * F))
-    modes = blocked_cycle_modes(G, 16).contiguous()
-    h = (G.diagonal(dim1=-2, dim2=-1) + 1e-6).contiguous()
     rows.append(("blocked_cd", "cuda", "src/repro_torch/kernels/csrc/blocked_cd.cu",
                  "src/repro/kernels/blocked_cd.py:132",
-                 lambda: blocked_cd.launch_blocked_cd(G, h, c, beta, db0,
-                                                      modes, lam, block=16),
+                 lambda: blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=16),
                  lambda: ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=16),
-                 tile_bytes + 4 * M * F + 4 * M * (F // 16), 2 * M * F * F + 10 * M * F))
+                 tile_bytes, 2 * M * F * F + 10 * M * F))
     rows = [(*row[:6], None, *row[6:], "") for row in rows] + sparse_time_rows(torch, sparse_inputs)
     rows = [(*row, F32_FLOPS_PER_S) for row in rows] + lm_time_rows(torch)
     table = []
@@ -1084,11 +1171,11 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
               f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}"
               + (f"; {note}" if note else ""))
-        if name == "blocked_cd":
-            wrap_ms = time_ms(torch, lambda: blocked_cd.blocked_cd_kernel(
-                G, c, beta, db0, lam, 1e-6, block=16), flush)
-            print(f"[times] blocked_cd with its wrapper's modes and h "
-                  f"(plain PyTorch on the card): {wrap_ms:.4f} ms")
+        if name in ("gram_cd", "blocked_cd"):
+            modes = blocked_cycle_modes(G, 16).flatten().tolist()
+            print(f"[times] {name}: {ms * 1e6 / F:.1f} ns per coordinate step (kernel time / "
+                  f"F, F={F}, M={M}{'' if name == 'gram_cd' else f', B=16, modes {Counter(modes)}'}"
+                  f"; one launch, as the path calls it)")
         table.append({"name": name, "route": route, "source": source,
                       "replaces": replaces, "launches": launches.get(name, 0),
                       "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
@@ -1170,7 +1257,7 @@ def profile_fit(torch, label: str, fit, card):
 
 
 def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
-    """One dense fit per cycle mode, a 3-iteration sparse fit and one LM
+    """One dense fit and a 3-iteration sparse fit per cycle mode, and one LM
     prefill, profiled."""
     from repro_torch.api import DenseDesign, LogisticL1, SlabDesign
     from repro_torch.core.dglmnet import DGLMNETOptions
@@ -1182,20 +1269,23 @@ def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
         profile_fit(torch, f"dense {mode}",
                     lambda: est.fit(DenseDesign(ds.X_train), ds.y_train, lam), card)
     (rows, vals, y), _ = cell
-    opts = DGLMNETOptions(**dict(SPARSE_OPTS, max_iters=3))
-    est = LogisticL1(opts, mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
-    label = "sparse sequential (3 iterations)"
-    res, prof = profile_fit(torch, label, lambda: est.fit(
-        SlabDesign(rows, vals, y.shape[0]), y, sparse_lam), card)
-    # device launches per tile step: all of the fit's, layout and
-    # per-iteration work included, over its iterations x tile steps
-    steps = res.n_iters * (rows.shape[0] // (SPARSE_M * opts.tile))
-    total = sum(count for _, count, _ in prof)
-    print(f"[profile] {label}: {total} device launches over {steps} tile steps: "
-          f"{total / steps:.2f} per tile step")
-    for _, count, name in sorted(prof, key=lambda row: -row[1]):
-        if count >= steps:
-            print(f"[profile] {label}:   {count / steps:.2f} per tile step: {name[:90]}")
+    for mode in ("sequential", "blocked"):
+        opts = DGLMNETOptions(**dict(SPARSE_OPTS, max_iters=3, cycle_mode=mode))
+        est = LogisticL1(opts, mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
+        label = f"sparse {mode} (3 iterations)"
+        res, prof = profile_fit(torch, label, lambda: est.fit(
+            SlabDesign(rows, vals, y.shape[0]), y, sparse_lam), card)
+        # device launches per tile step: all of the fit's, layout and
+        # per-iteration work included, over its iterations x tile steps
+        steps = res.n_iters * (rows.shape[0] // (SPARSE_M * opts.tile))
+        total = sum(count for _, count, _ in prof)
+        print(f"[profile] {label}: {total} device launches over {steps} tile steps: "
+              f"{total / steps:.2f} per tile step")
+        print(f"[sparse] {mode}: {total / steps:.2f} device launches per tile step "
+              f"(torch.profiler, {res.n_iters} iterations, layout included)")
+        for _, count, name in sorted(prof, key=lambda row: -row[1]):
+            if count >= steps:
+                print(f"[profile] {label}:   {count / steps:.2f} per tile step: {name[:90]}")
     del rows, vals, y
     profile_prefill(torch, lm_inputs, card)
 

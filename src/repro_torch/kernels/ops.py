@@ -67,11 +67,11 @@ def logistic_stats(m, y):
 
 
 def gram_cd(G, c, beta, dbeta0, lam, nu=NU):
-    """One sequential CD cycle on Gram tiles (M, F, F); returns d (M, F)."""
+    """One sequential CD cycle on Gram tiles (M, F, F); returns d (M, F).
+    The (M, F) operands may be row-strided views (the solve's
+    ``beta[:, sl]`` slices): the kernel reads them in place."""
     if _on_cuda(G, c, beta, dbeta0):
-        return _gram_cd.gram_cd_kernel(
-            G.contiguous(), c.contiguous(), beta.contiguous(),
-            dbeta0.contiguous(), lam, nu)
+        return _gram_cd.gram_cd_kernel(G, c, beta, dbeta0, lam, nu)
     return ref.gram_cd_ref(G, c, beta, dbeta0, lam, nu)
 
 
@@ -87,11 +87,10 @@ def prefer_blocked_cd(f: int, block: int) -> bool:
 
 def blocked_cd(G, c, beta, dbeta0, lam, nu=NU, *, block: int = 16):
     """Blocked semi-parallel CD cycle on Gram tiles (F/B dependent steps
-    instead of F); same contract as :func:`gram_cd`."""
+    instead of F); same contract as :func:`gram_cd`. On the card one
+    launch computes the per-block modes and the cycle."""
     if _on_cuda(G, c, beta, dbeta0):
-        return _blocked_cd.blocked_cd_kernel(
-            G.contiguous(), c.contiguous(), beta.contiguous(),
-            dbeta0.contiguous(), lam, nu, block=block)
+        return _blocked_cd.blocked_cd_kernel(G, c, beta, dbeta0, lam, nu, block=block)
     return ref.blocked_cd_ref(G, c, beta, dbeta0, lam, nu, block=block)
 
 
