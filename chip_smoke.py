@@ -7,18 +7,24 @@ of which fails the run with a non-zero exit:
 1. device -- a CUDA card must be present (no CPU fallback); prints its
    name and power limit and the torch/CUDA versions;
 2. build -- compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, in parallel) and the Triton kernel;
+   (one ``nvcc`` per source, in parallel);
 3. kernels -- each kernel against its plain PyTorch version on the card at
    the main paths' shapes (atol = rtol = 1e-5; the NLL to 1e-5 relative);
+   ``logistic_stats`` at the main path's n, a ragged n, n below one block,
+   a misaligned m (the scalar path) and extreme margins, three launches in
+   a row bit-equal (the NLL's ticket resets itself);
    ``gram_cd`` at M=16 and F = 64, 128 (G resident in shared memory), 256,
    1024 (G streamed through a ring) and 50 (no TMA), two launches
    bit-equal; ``blocked_cd`` at B = 16 and 8 on a tile where modes 0, 1
    and 2 all occur, at F = 256 and at B = 10, its in-kernel modes
    (``modes_out``) equal to ``blocked_cycle_modes`` or, where not, the
    block's ratio within 4 ulp of the threshold, and a tile exactly at the
-   threshold; both at B=1 bit-equal to each other at F = 128 and 256; both
-   on strided beta/dbeta0 views bit-equal to contiguous inputs; the tile
-   kernels' division bit-equal to IEEE division on 2^32 pairs;
+   threshold, and a tile whose modes move with the threshold at
+   ``dom_tol`` 0.5 and 0.99 against ``blocked_cd_ref(dom_tol=)`` and
+   ``blocked_cycle_modes(dom_tol=)``; both at B=1 bit-equal to each
+   other at F = 128 and 256; both on strided beta/dbeta0 views bit-equal
+   to contiguous inputs; the tile kernels' division bit-equal to IEEE
+   division on 2^32 pairs;
 4. main path -- ``LogisticL1(...).fit(DenseDesign(X), y, lam)`` at the
    paper's epsilon scale (320,000 x 2000 training rows, generated on the
    card), M=16 blocks of one 128-wide tile, lam = lambda_max / 16, in both
@@ -36,9 +42,13 @@ of which fails the run with a non-zero exit:
    plain path's sentinel-zeroed gathers through the match join) and the
    densify oracles at the cell's shapes, on adversarial slabs (duplicate
    rows, sentinels anywhere with values parked on them, empty features,
-   unsorted slots) and, for ``slab_gram``, on a tile whose row-sorted
+   unsorted slots), for ``slab_spmv`` on a "hub" row whose run crosses
+   warps and blocks and, for ``slab_gram``, on a tile whose row-sorted
    order does not fit in shared memory, each bit-equal across two
-   launches;
+   launches; ``slab_spmv`` with the tile's dbeta update fused bit-equal to
+   the separate ``+=``, and with the order built by the dispatch
+   (``order=None``) bit-equal to the layout's; an order without its
+   values refused before any launch;
 7. sparse path -- ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).fit(
    SlabDesign(...), y, lam)`` with lam = lambda_max / 16 in both cycle
    modes: the strategy picks the slab-native solver, status OK, monotone
@@ -74,6 +84,8 @@ of which fails the run with a non-zero exit:
 12. times -- each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
+   ``slab_spmv`` also without its fused dbeta update and at the margins'
+   shape (16 blocks of 65,536 features), beside its byte bound;
 13. profile -- device time by kernel (torch.profiler) for one dense fit
    per cycle mode, a 3-iteration sparse fit per cycle mode (with device
    launches per tile step), one LM prefill and 8 decode steps after it; a
@@ -81,6 +93,16 @@ of which fails the run with a non-zero exit:
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --sparse-host [--src DIR]`` runs
+only the device and build phases and the sparse cell's host-side
+timings (two fits per cycle mode, in turns, with the host thread's CPU
+time per tile step; ten runs of one iteration's tile loop per mode; the
+host time of the tile step's residual update; and ``slab_spmv`` at the
+margins' shape with and without a built order) for
+the ``repro_torch`` under ``DIR/`` (default: this checkout's ``src``):
+run it on two checkouts in turns to compare them. It prints no ``ok``
+line.
 """
 from __future__ import annotations
 
@@ -183,9 +205,17 @@ def tile_inputs(torch, gen, M: int, F: int, n: int = 4096, kind: str = "random")
     """Gram tiles G = Xf^T diag(w) Xf and c = (w Xf)^T r as the main path
     builds them. ``kind="modes"`` makes each 16-wide block of features
     independent, pairwise-correlated across halves, or duplicated, so the
-    blocked cycle's modes 0, 1 and 2 all occur."""
+    blocked cycle's modes 0, 1 and 2 all occur; ``kind="graded"``
+    correlates the halves of block g by g/8 (g mod 8), so the blocks'
+    Gershgorin ratios spread from about 0.2 to 1 and the modes move with
+    the threshold."""
     dev = "cuda"
     Xf = torch.randn(M, n, F, generator=gen, device=dev)
+    if kind == "graded":
+        for lo in range(0, F, 16):
+            a = ((lo // 16) % 8) / 8
+            Xf[:, :, lo + 8:lo + 16] = (a * Xf[:, :, lo:lo + 8]
+                                        + (1 - a * a) ** 0.5 * Xf[:, :, lo + 8:lo + 16])
     if kind == "modes":
         for lo in range(0, F, 16):
             g = (lo // 16) % 3
@@ -221,7 +251,7 @@ def phase_device(torch):
 
 
 def phase_build(torch):
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     secs = build.build_all()
@@ -230,15 +260,8 @@ def phase_build(torch):
         lines = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"[build] {name}: " + " | ".join(lines))
-    # the Triton kernel compiles at its first launch
-    m = torch.zeros(8, device="cuda")
-    t1 = time.perf_counter()
-    ops.logistic_stats(m, torch.ones_like(m))
-    torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t1
     print(f"[build] nvcc (parallel) {t_nvcc:.2f} s "
-          f"{ {k: round(v, 2) for k, v in secs.items()} }; "
-          f"triton logistic_stats {t_triton:.2f} s")
+          f"{ {k: round(v, 2) for k, v in secs.items()} }")
 
 
 def phase_kernels(torch, gen):
@@ -246,26 +269,35 @@ def phase_kernels(torch, gen):
     from repro_torch.kernels import blocked_cd, gram_cd, logistic_stats, ref
 
     errs = {}
-    # logistic_stats: main-path n, a ragged n, and extreme margins
+    # logistic_stats: main-path n, a ragged n, n below one block, a
+    # misaligned m (the scalar path), and extreme margins; three launches in
+    # a row must be bit-equal (the NLL's ticket resets itself)
     for label, n, scale in (("n=320000", 320_000, 4.0), ("ragged n=100003", 100_003, 4.0),
+                            ("n=1000, below one block", 1000, 4.0),
+                            ("misaligned n=99999", 99_999, 4.0),
                             ("margins +-40/+-100", 4099, 0.0)):
         if scale:
-            m = scale * torch.randn(n, generator=gen, device="cuda")
+            m = scale * torch.randn(n + 1, generator=gen, device="cuda")
+            m = m[1:] if label.startswith("misaligned") else m[:n]
         else:
             m = torch.tensor([40.0, -40.0, 100.0, -100.0, 88.0, -88.0, 0.0],
                              device="cuda").repeat(-(-n // 7))[:n].contiguous()
         y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
-        w, z, nll = logistic_stats.logistic_stats_kernel(m, y)
+        outs = [logistic_stats.logistic_stats_kernel(m, y) for _ in range(3)]
+        w, z, nll = outs[0]
         w0, z0, nll0 = ref.logistic_stats_ref(m, y)
         torch.cuda.synchronize()
         ok = (torch.allclose(w, w0, rtol=TOL, atol=TOL)
               and torch.allclose(z, z0, rtol=TOL, atol=TOL)
               and abs(float(nll) - float(nll0)) <= TOL * abs(float(nll0)))
+        same = all(torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
         e = max(max_err(w, w0), max_err(z, z0))
         print(f"[kernels] logistic_stats {label}: max|dw|,|dz| {e:.3g}, "
-              f"nll {float(nll):.6f} vs {float(nll0):.6f} -> {'ok' if ok else 'MISMATCH'}")
+              f"nll {float(nll):.6f} vs {float(nll0):.6f}, three launches "
+              f"{'bit-equal' if same else 'DIFFERENT'} -> {'ok' if ok and same else 'MISMATCH'}")
         check(ok, f"logistic_stats {label} disagrees with its plain version")
-        errs.setdefault("logistic_stats", e)
+        check(same, f"logistic_stats {label}: three launches differ")
+        errs["logistic_stats"] = max(errs.get("logistic_stats", 0.0), e)
 
     # gram_cd: resident tiles (F <= 128), the ring (F = 256, 1024), and
     # F = 50, whose rows are not whole 16-byte units (plain loads, no TMA)
@@ -328,6 +360,29 @@ def phase_kernels(torch, gen):
         check(got == want == plain, f"threshold tile: kernel mode {got}, plain {plain}, "
               f"expected {want}")
 
+    # the safeguard's threshold as an argument: a tile whose modes move with
+    # it, at 0.5 and 0.99
+    G, c, beta, db0, lam = tile_inputs(torch, gen, 16, 128, kind="graded")
+    seen = {}
+    for tol in (0.5, 0.99):
+        modes_out = torch.full((16, 8), -1, dtype=torch.int32, device="cuda")
+        d = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=16,
+                                         modes_out=modes_out, dom_tol=tol)
+        d0 = ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=16, dom_tol=tol)
+        modes = blocked_cycle_modes(G, 16, dom_tol=tol)
+        torch.cuda.synchronize()
+        e = max_err(d, d0)
+        ok = torch.allclose(d, d0, rtol=TOL, atol=TOL)
+        print(f"[kernels] blocked_cd dom_tol={tol} M=16 F=128 B=16 modes "
+              f"{dict(Counter(modes.flatten().tolist()))}: max|dd| {e:.3g} -> "
+              f"{'ok' if ok else 'MISMATCH'}")
+        check_modes(torch, G, 16, modes_out, modes, f"dom_tol={tol}", dom_tol=tol)
+        check(ok, f"blocked_cd at dom_tol={tol} disagrees with its plain version")
+        errs["blocked_cd"] = max(errs["blocked_cd"], e)
+        seen[tol] = modes
+    check(not torch.equal(seen[0.5], seen[0.99]),
+          "the graded tile's modes should differ between dom_tol 0.5 and 0.99")
+
     for F in (128, 256):
         G, c, beta, db0, lam = tile_inputs(torch, gen, 16, F)
         d1 = blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=1)
@@ -361,26 +416,27 @@ def phase_kernels(torch, gen):
     return errs
 
 
-def check_modes(torch, G, B: int, got, plain, label: str):
+def check_modes(torch, G, B: int, got, plain, label: str, dom_tol=None):
     """The kernel's modes (``modes_out``) must equal ``blocked_cycle_modes``;
     where they differ, the block's Gershgorin ratio must lie within 4 ulp
-    of the threshold (the two sum |G_jk| in different orders)."""
+    of the threshold ``dom_tol`` (the two sum |G_jk| in different orders)."""
     from repro_torch.core.subproblem import DOM_TOL, _block_dominance
 
+    dom_tol = DOM_TOL if dom_tol is None else dom_tol
     diff = got != plain
     if not bool(diff.any()):
         print(f"[kernels] blocked_cd {label}: in-kernel modes equal blocked_cycle_modes")
         return
-    tol = torch.tensor(DOM_TOL, dtype=torch.float32)
+    tol = torch.tensor(dom_tol, dtype=torch.float32)
     ulp = float(torch.nextafter(tol, torch.tensor(1.0)) - tol)
     rho_full = _block_dominance(G, B, 1e-6)
-    near = (rho_full - DOM_TOL).abs() <= 4 * ulp
+    near = (rho_full - dom_tol).abs() <= 4 * ulp
     if B % 2 == 0:
         rho_half = _block_dominance(G, B // 2, 1e-6).reshape(*rho_full.shape, 2).amax(-1)
-        near |= (rho_half - DOM_TOL).abs() <= 4 * ulp
+        near |= (rho_half - dom_tol).abs() <= 4 * ulp
     for m, b in diff.nonzero().tolist():
         print(f"[kernels] blocked_cd {label}: block ({m}, {b}) kernel mode {int(got[m, b])}, "
-              f"plain {int(plain[m, b])}, rho {float(rho_full[m, b])!r} beside {DOM_TOL}")
+              f"plain {int(plain[m, b])}, rho {float(rho_full[m, b])!r} beside {dom_tol}")
     check(bool(near[diff].all()), f"blocked_cd {label}: in-kernel modes differ from "
           f"blocked_cycle_modes away from the threshold")
 
@@ -594,7 +650,7 @@ def phase_sparse_kernels(torch, gen, cell):
     w = 0.05 + 0.2 * torch.rand(n, generator=gen, device="cuda")
     r = torch.randn(M, n, generator=gen, device="cuda")
     d = 0.1 * torch.randn(M, T, generator=gen, device="cuda")
-    order = SlabOrder(lay.order.rows_s[:, t], lay.order.perm[:, t])
+    order = SlabOrder(*(f[:, t] for f in lay.order))
     errs = {"slab_gram": 0.0, "slab_spmv": 0.0}
 
     def hold(name, label, got, plain, oracle=None, again=None):
@@ -637,10 +693,46 @@ def phase_sparse_kernels(torch, gen, cell):
     plain = r - ref.slab_spmv_scatter(R.clamp_max(n), dv, n)
     hold("slab_spmv", f"cell residual update M={M} T={T} K={K}", (got,), (plain,),
          oracle=(r - ref.slab_spmv_ref(R, V, d, n),), again=(again,))
+    # the tile step's call: dbeta[:, sl] += d fused into the same launch
+    dbw = torch.randn(M, 3 * T, generator=gen, device="cuda")
+    fused_r, fused_db = r.clone(), dbw.clone()
+    slab_spmv.slab_spmv_kernel(order, V, d, fused_r, n_loc=n, sign=-1.0,
+                               dbeta=fused_db[:, T:2 * T])
+    sep_db = dbw.clone()
+    sep_db[:, T:2 * T] += d
+    torch.cuda.synchronize()
+    same = torch.equal(fused_r, got) and torch.equal(fused_db, sep_db)
+    print(f"[sparse-kernels] slab_spmv with dbeta fused: r and dbeta "
+          f"{'bit-equal' if same else 'DIFFERENT'} to the separate launch and += -> "
+          f"{'ok' if same else 'MISMATCH'}")
+    check(same, "slab_spmv with the dbeta update fused differs from the separate steps")
+    # the dispatch's own order (order=None) against the layout's
+    built_m = ops.slab_spmv(R, V, d, n_loc=n)
+    passed_m = ops.slab_spmv(R, V, d, n_loc=n, order=order)
+    built_r = ops.slab_residual_update(r.clone(), R, V, d)
+    torch.cuda.synchronize()
+    same = torch.equal(built_m, passed_m) and torch.equal(built_r, got)
+    print(f"[sparse-kernels] slab_spmv with order=None: "
+          f"{'bit-equal' if same else 'DIFFERENT'} to the layout's order -> "
+          f"{'ok' if same else 'MISMATCH'}")
+    check(same, "slab_spmv with the order built per call differs from the layout's order")
+    # an order without its values is refused before any launch
+    before = slab_spmv.launches
+    try:
+        slab_spmv.slab_spmv_kernel(SlabOrder(order.rows_s, order.perm), V, d, r.clone(),
+                                   n_loc=n, sign=-1.0)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"[sparse-kernels] slab_spmv with an order lacking vals_s: "
+          f"{'refused' if refused else 'LAUNCHED'} -> {'ok' if refused else 'MISMATCH'}")
+    check(refused and slab_spmv.launches == before,
+          "slab_spmv accepted an order without its values")
+    del dbw, fused_r, fused_db, sep_db, built_m, passed_m, built_r
     # slab_spmv at the margins' shape: (M, p/M, K) per block
     Rm, Vm = rows[:, 0].reshape(M, p // M, K), vals[:, 0].reshape(M, p // M, K)
     beta = torch.randn(M, p // M, generator=gen, device="cuda")
-    om = slab_order(Rm)
+    om = slab_order(Rm, Vm)
     got = slab_spmv.slab_spmv_kernel(om, Vm, beta, torch.zeros(M, n, device="cuda"),
                                      n_loc=n, sign=1.0)
     again = slab_spmv.slab_spmv_kernel(om, Vm, beta, torch.zeros(M, n, device="cuda"),
@@ -688,7 +780,24 @@ def phase_sparse_kernels(torch, gen, cell):
     got = ops.slab_residual_update(rra.clone(), ra, vla, da)
     hold("slab_spmv", "adversarial residual update", (got,),
          (rra - ref.slab_spmv_scatter(ra.clamp_max(na), dva, na),))
-    inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, n=n)
+    # a hub row: example 17 in the first 9 slots of every feature (1,152
+    # slots per block, a run across warps and 512-position blocks)
+    rh = torch.sort(torch.randint(0, na, (4, 128, 94), generator=gen, device="cuda",
+                                  dtype=torch.int32), dim=-1).values
+    rh[..., :9] = 17
+    vh = torch.randn(4, 128, 94, generator=gen, device="cuda")
+    dh = 0.1 * torch.randn(4, 128, generator=gen, device="cuda")
+    oh = slab_order(rh, vh)
+    check(int((oh.rows_s == 17).sum(-1).min()) >= 2 * slab_spmv.CHUNK,
+          "the hub row's run should cross two blocks")
+    got = ops.slab_residual_update(rra[:4].clone(), rh, vh, dh, order=oh)
+    again = ops.slab_residual_update(rra[:4].clone(), rh, vh, dh, order=oh)
+    dvh = vh * dh[..., None]
+    hold("slab_spmv", "hub row across warps and blocks", (got,),
+         (rra[:4] - ref.slab_spmv_scatter(rh, dvh, na),),
+         oracle=(rra[:4] - ref.slab_spmv_ref(rh, vh, dh, na),), again=(again,))
+    del rh, vh, dh, oh, dvh
+    inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, n=n, margins=(Rm, Vm, beta))
     del lay
     return errs, inputs
 
@@ -1099,11 +1208,14 @@ def sparse_time_rows(torch, inp):
     n_live = int(live.sum())
     del safe, va, wv, cva, live, bi, ex, ft, per_row
     r_work = r.clone()
+    db_work = torch.zeros(B, 3 * T, device="cuda")[:, T:2 * T]
     dv = torch.where(R < n, V, 0.0) * d[..., None]
     # slab_gram reads rows, values and the tile's order (rows_s, perm) once
-    # per slot, w and r once per live slot, and writes G and c
+    # per slot, w and r once per live slot, and writes G and c; slab_spmv,
+    # as the tile step calls it, reads the order's three streams once per
+    # slot and d, updates r at the touched rows and dbeta
     gram_bytes = 4 * 4 * B * T * K + 8 * n_live + 4 * (B * T * T + B * T)
-    spmv_bytes = 3 * 4 * B * T * K + 4 * B * T + 8 * touched
+    spmv_bytes = 3 * 4 * B * T * K + 4 * B * T + 8 * touched + 8 * B * T
 
     def gram_plain():
         safe, va, wv, cva = ops._sentinel_zeroed(R, V, w, r, n)
@@ -1121,13 +1233,45 @@ def sparse_time_rows(torch, inp):
          f"plain include the gathers of w and r, the library call does not"),
         ("slab_spmv", "cuda", "src/repro_torch/kernels/csrc/slab_spmv.cu",
          "src/repro/kernels/sparse_slab.py:126",
-         lambda: slab_spmv.slab_spmv_kernel(order, V, d, r_work, n_loc=n, sign=-1.0),
-         lambda: r - ref.slab_spmv_scatter(R.clamp_max(n), dv, n),
+         lambda: slab_spmv.slab_spmv_kernel(order, V, d, r_work, n_loc=n, sign=-1.0,
+                                            dbeta=db_work),
+         lambda: (r - ref.slab_spmv_scatter(R.clamp_max(n), dv, n), db_work + d),
          lambda: torch.mv(X_csr, d_flat),
          spmv_bytes, 2 * n_live,
-         f"r -= X_F d for M={B} blocks of T={T}, K={K}: {n_live} live slots, "
-         f"{touched} rows touched"),
+         f"r -= X_F d and dbeta += d (one launch, as the tile step calls it) for M={B} "
+         f"blocks of T={T}, K={K}: {n_live} live slots, {touched} rows touched; the "
+         f"library call computes X_F d alone"),
     ]
+
+
+def spmv_extra_times(torch, inp, flush, card):
+    """slab_spmv without its fused dbeta update at the tile step, and at
+    the margins' shape (16 blocks of p/16 features into zeroed margins),
+    each beside its byte bound."""
+    from repro_torch.kernels import slab_spmv
+    from repro_torch.kernels.slab_spmv import slab_order
+
+    R, V, d, r, order, n = inp["R"], inp["V"], inp["d"], inp["r"], inp["order"], inp["n"]
+    B, T, K = R.shape
+    r_work = r.clone()
+    ms = time_ms(torch, lambda: slab_spmv.slab_spmv_kernel(order, V, d, r_work, n_loc=n,
+                                                           sign=-1.0), flush)
+    touched = int(sum(torch.unique(order.rows_s[b][order.rows_s[b] < n]).numel()
+                      for b in range(B)))
+    b_ms, _ = bound_ms(3 * 4 * B * T * K + 4 * B * T + 8 * touched, 0)
+    print(f"[times] slab_spmv without dbeta (r -= X_F d alone) M={B} T={T} K={K}: kernel "
+          f"{ms:.4f} ms, bound {b_ms:.5f} ms (bytes) on {card}")
+    Rm, Vm, beta = inp["margins"]
+    om = slab_order(Rm, Vm)
+    M, Tm, Km = Vm.shape
+    out = torch.zeros(M, n, device="cuda")
+    ms = time_ms(torch, lambda: slab_spmv.slab_spmv_kernel(om, Vm, beta, out, n_loc=n,
+                                                           sign=1.0), flush, reps=10)
+    touched = int(sum(torch.unique(om.rows_s[b][om.rows_s[b] < n]).numel() for b in range(M)))
+    n_bytes = 3 * 4 * M * Tm * Km + 4 * M * Tm + 8 * touched
+    b_ms, _ = bound_ms(n_bytes, 2 * int((om.rows_s < n).sum()))
+    print(f"[times] slab_spmv at the margins' shape M={M} p/M={Tm} K={Km}: kernel {ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms (bytes: {n_bytes}; {touched} rows touched) on {card}")
 
 
 def phase_times(torch, gen, errs, launches, card, sparse_inputs):
@@ -1140,12 +1284,11 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
     n = 320_000
     m = 4.0 * torch.randn(n, generator=gen, device="cuda")
     y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
-    nblk = -(-n // logistic_stats.BLOCK)
-    rows.append(("logistic_stats", "triton", "src/repro_torch/kernels/logistic_stats.py",
+    rows.append(("logistic_stats", "cuda", "src/repro_torch/kernels/csrc/logistic_stats.cu",
                  "src/repro/kernels/logistic_stats.py:50",
                  lambda: logistic_stats.logistic_stats_kernel(m, y),
                  lambda: ref.logistic_stats_ref(m, y),
-                 16 * n + 4 * nblk, 30 * n))
+                 16 * n + 4, 30 * n))
     M, F = 16, 128
     G, c, beta, db0, lam = tile_inputs(torch, gen, M, F)
     tile_bytes = 4 * (M * F * F + 4 * M * F)
@@ -1180,6 +1323,7 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
                       "replaces": replaces, "launches": launches.get(name, 0),
                       "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+    spmv_extra_times(torch, sparse_inputs, flush, card)
     return table
 
 
@@ -1290,13 +1434,149 @@ def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
     profile_prefill(torch, lm_inputs, card)
 
 
+def phase_sparse_host(torch, card, repeats: int = 2):
+    """``--sparse-host``: the sparse cell alone, for an A/B of two
+    checkouts run in turns (``--src`` names the other checkout's ``src``).
+    It calls only interfaces that the port has kept since the slab solve
+    came in, so one copy of it drives either side. Per cycle mode, in
+    turns, ``repeats`` fits, each with its wall and the host thread's CPU
+    time per tile step; five times as many runs of one outer iteration's
+    tile loop (``local_subproblem_sparse``) alone; the host time of the
+    tile step's residual update as the checkout makes it; then
+    ``slab_spmv`` at the margins' shape: the kernel on a built order, and
+    ``ops.slab_spmv`` with ``order=None`` end to end (the order built in
+    the call)."""
+    import inspect
+
+    from repro_torch.api import LogisticL1, SlabDesign, lambda_max_design
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.core.distributed import layout_slabs, local_subproblem_sparse
+    from repro_torch.core.subproblem import NU
+    from repro_torch.kernels import ops, slab_spmv
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    t0 = time.perf_counter()
+    cell = sparse_cell(torch)
+    torch.cuda.synchronize()
+    print(f"[sparse-host] cell generated on the card in {time.perf_counter() - t0:.2f} s; "
+          f"package {Path(ops.__file__).resolve().parents[2]}")
+    (rows, vals, y), _ = cell
+    n, p, K = y.shape[0], rows.shape[0], rows.shape[-1]
+    M, T = SPARSE_M, SPARSE_OPTS["tile"]
+    steps = p // (M * T)
+    design = SlabDesign(rows, vals, n)
+    lam = float(lambda_max_design(design, y)) / 16
+    mesh = make_dev_mesh(1, M)
+    modes = ("sequential", "blocked")
+    for mode in modes:                  # warm-up: allocator pools
+        LogisticL1(DGLMNETOptions(**dict(SPARSE_OPTS, max_iters=1, cycle_mode=mode)),
+                   mesh=mesh, device="cuda").fit(design, y, lam)
+    for rep in range(repeats):
+        for mode in modes:
+            est = LogisticL1(DGLMNETOptions(cycle_mode=mode, **SPARSE_OPTS), mesh=mesh,
+                             device="cuda")
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            res = est.fit(design, y, lam)
+            torch.cuda.synchronize()
+            wall, cpu = time.perf_counter() - t0, time.thread_time() - c0
+            check(res.ok, f"sparse {mode} fit tripped {res.status_name}")
+            per = res.n_iters * steps
+            print(f"[sparse-host] {mode} fit {rep + 1}: {res.n_iters} iters, f {res.f:.4f}, "
+                  f"{wall * 1e3 / res.n_iters:.2f} ms per outer iteration; per tile step "
+                  f"{wall * 1e6 / per:.2f} us wall, {cpu * 1e6 / per:.2f} us host thread CPU, "
+                  f"on {card}")
+    lay = layout_slabs(rows[:, 0], vals[:, 0], M, T)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    w = 0.05 + 0.2 * torch.rand(n, generator=gen, device="cuda")
+    z = torch.randn(n, generator=gen, device="cuda")
+    beta = torch.zeros(M, steps * T, device="cuda")
+    # one outer iteration's tile loop, many times: its minimum is the host
+    # cost with the least interference from other work on the host
+    loops = {mode: [] for mode in modes}
+    for rep in range(5 * repeats):
+        for mode in modes:
+            r = z.expand(M, -1).clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local_subproblem_sparse(lay, w, r, beta, lam, tile=T, nu=NU, cycle_mode=mode,
+                                    block=SPARSE_OPTS["block"])
+            torch.cuda.synchronize()
+            loops[mode].append((time.perf_counter() - t0) * 1e3)
+    for mode, ms in loops.items():
+        print(f"[sparse-host] {mode} tile loop (one outer iteration, {steps} tile steps), "
+              f"{len(ms)} runs: min {min(ms):.2f} ms, median {statistics.median(ms):.2f} ms "
+              f"({min(ms) * 1e3 / steps:.2f} / {statistics.median(ms) * 1e3 / steps:.2f} us "
+              f"per tile step); all {[round(x, 2) for x in ms]}, on {card}")
+    # the residual update as this checkout's tile step makes it (one call
+    # with dbeta where ops.slab_residual_update takes it, else the call
+    # and dbeta[:, sl] += d), timed on the host: batches of 200 enqueued
+    # calls, each far longer on the host than on the card
+    fused = "dbeta" in inspect.signature(ops.slab_residual_update).parameters
+    t = steps // 2
+    rows_t, vals_t = lay.rows[:, t], lay.vals[:, t]
+    order_t = slab_spmv.SlabOrder(*(f[:, t] for f in lay.order))
+    d = 1e-3 * torch.randn(M, T, generator=gen, device="cuda")
+    r = z.expand(M, -1).clone()
+    db = torch.zeros(M, steps * T, device="cuda")
+    sl = slice(t * T, (t + 1) * T)
+
+    def update():
+        if fused:
+            ops.slab_residual_update(r, rows_t, vals_t, d, order=order_t, dbeta=db[:, sl])
+        else:
+            ops.slab_residual_update(r, rows_t, vals_t, d, order=order_t)
+            db[:, sl] += d
+
+    per = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            update()
+        per.append((time.perf_counter() - t0) * 1e6 / 200)
+    torch.cuda.synchronize()
+    print(f"[sparse-host] residual update as the tile step makes it "
+          f"({'one fused call' if fused else 'the call and dbeta += d'}), host time per "
+          f"step over {len(per)} batches of 200: min {min(per):.2f} us, median "
+          f"{statistics.median(per):.2f} us, on {card}")
+    del lay, r
+    flush = torch.empty(256 * 2 ** 20, device="cuda")
+    Rm, Vm = rows[:, 0].reshape(M, p // M, K), vals[:, 0].reshape(M, p // M, K)
+    bm = torch.randn(M, p // M, generator=gen, device="cuda")
+    with_vals = len(inspect.signature(slab_spmv.slab_order).parameters) > 1
+    om = slab_spmv.slab_order(Rm, Vm) if with_vals else slab_spmv.slab_order(Rm)
+    out = torch.zeros(M, n, device="cuda")
+    k_ms = time_ms(torch, lambda: slab_spmv.slab_spmv_kernel(om, Vm, bm, out, n_loc=n,
+                                                             sign=1.0), flush, reps=10)
+    del om, out
+    e_ms = time_ms(torch, lambda: ops.slab_spmv(Rm, Vm, bm, n_loc=n), flush, reps=10)
+    print(f"[sparse-host] slab_spmv at the margins' shape M={M} p/M={p // M} K={K}: kernel "
+          f"on a built order {k_ms:.4f} ms; ops.slab_spmv(order=None) end to end "
+          f"{e_ms:.4f} ms (order built per call); on {card}")
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sparse-host", action="store_true",
+                    help="time only the sparse cell's fits, tile loop and margins product")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the src directory whose repro_torch is driven (--sparse-host)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(args.src.resolve() if args.sparse_host else ROOT / "src"))
     import repro_torch  # noqa: F401  (applies the precision policy)
+
+    if args.sparse_host:
+        card = phase_device(torch)
+        phase_build(torch)
+        phase_sparse_host(torch, card)
+        return 0
 
     t_start = time.perf_counter()
     card = phase_device(torch)

@@ -8,11 +8,13 @@ M blocks advance together, one kernel launch for all of them:
 
 * :func:`layout_slabs` -- (p_pad, K) slabs -> (M, nt, T, K) tiles, each
   feature's slots sorted by row, plus each tile's row-sorted slot order
-  (``slab_gram`` needs both, ``slab_spmv``'s segmented sum the order).
+  and its values in that order (``slab_gram`` needs the sorted slots and
+  the order, ``slab_spmv``'s segmented sum the order and its values).
   Built once per fit, as ``layout_blocks`` lays out dense tiles;
 * :func:`local_subproblem_sparse` -- one CD cycle over the tiles: per
   tile step one ``slab_gram``, one tile-cycle kernel and one
-  ``slab_spmv`` residual update for all M blocks;
+  ``slab_spmv`` residual update for all M blocks, which also advances
+  the tile's dbeta;
 * :func:`make_distributed_iteration_sparse` -- the engine's iteration,
   with ``dm = sum_m (z - r_m)`` (a reduction over the batch axis, in a
   fixed order) in place of the reference's ``psum`` over ``model``;
@@ -82,7 +84,7 @@ def pad_features(row_idx, values, beta, n_loc: int, quantum: int):
 class SlabLayout(NamedTuple):
     """Slabs laid out for the by-feature solve: ``rows``/``vals`` (M, nt,
     T, K) with each feature's slots sorted by row, and ``order``, each
-    tile's slots sorted by row ((M, nt, T * K) each)."""
+    tile's slots sorted by row with their values ((M, nt, T * K) each)."""
 
     rows: torch.Tensor
     vals: torch.Tensor
@@ -91,7 +93,8 @@ class SlabLayout(NamedTuple):
 
 def layout_slabs(row_idx, values, num_blocks: int, tile: int) -> SlabLayout:
     """(p_pad, K) slabs (p_pad a multiple of num_blocks * tile) -> the
-    per-fit :class:`SlabLayout`: two stable sorts, no host read."""
+    per-fit :class:`SlabLayout`: two stable sorts and two gathers of the
+    values, no host read."""
     p, k = row_idx.shape
     if p % (num_blocks * tile):
         raise ValueError(f"p={p} must be a multiple of M * tile = {num_blocks * tile}")
@@ -99,7 +102,7 @@ def layout_slabs(row_idx, values, num_blocks: int, tile: int) -> SlabLayout:
     rows = row_idx.reshape(num_blocks, nt, tile, k)
     rows_s, idx = torch.sort(rows, dim=-1, stable=True)
     vals = values.reshape(num_blocks, nt, tile, k).gather(-1, idx)
-    return SlabLayout(rows_s.contiguous(), vals.contiguous(), slab_order(rows_s))
+    return SlabLayout(rows_s.contiguous(), vals.contiguous(), slab_order(rows_s, vals))
 
 
 def local_subproblem_sparse(lay: SlabLayout, w, r, beta, lam, *, tile: int,
@@ -109,9 +112,10 @@ def local_subproblem_sparse(lay: SlabLayout, w, r, beta, lam, *, tile: int,
 
     ``lay`` from :func:`layout_slabs`; w (n_loc,); r (M, n_loc), advanced
     in place; beta (M, nt * tile). Each tile's Gram block and correlation
-    come straight from the slabs (``kernels.slab_gram``) and the
-    residuals advance with the slab product (``kernels.slab_spmv``), with
-    no (n_loc, tile) densify. Returns (dbeta (M, nt * tile), r).
+    come straight from the slabs (``kernels.slab_gram``), and the
+    residuals and dbeta advance with the slab product
+    (``kernels.slab_spmv``, one launch for both), with no (n_loc, tile)
+    densify. Returns (dbeta (M, nt * tile), r).
     """
     from repro_torch.kernels import ops as kops
 
@@ -120,12 +124,11 @@ def local_subproblem_sparse(lay: SlabLayout, w, r, beta, lam, *, tile: int,
     dbeta = torch.zeros_like(beta)
     for t in range(nt):
         rows, vals = lay.rows[:, t], lay.vals[:, t]
-        order = SlabOrder(lay.order.rows_s[:, t], lay.order.perm[:, t])
+        order = SlabOrder(*(f[:, t] for f in lay.order))
         G, c = kops.slab_gram(rows, vals, w, r, rows_sorted=True, order=order)
         sl = slice(t * tile, (t + 1) * tile)
         d = tile_solver(G, c, beta[:, sl], dbeta[:, sl], lam, nu)
-        kops.slab_residual_update(r, rows, vals, d, order=order)
-        dbeta[:, sl] += d
+        kops.slab_residual_update(r, rows, vals, d, order=order, dbeta=dbeta[:, sl])
     return dbeta, r
 
 

@@ -184,18 +184,19 @@ def cd_cycle_blocked_tile(G, c, beta, dbeta0, lam, nu: float = NU, *,
 
 
 def make_tile_solver(*, cycle_mode: str = "sequential", tile: int,
-                     block: int = 16):
+                     block: int = 16, dom_tol: float = DOM_TOL):
     """The per-tile cycle every solve shares: ``(G, c, beta, dbeta0, lam,
     nu) -> d``, batched. It goes through the kernel dispatch
     (``repro_torch.kernels.ops``), which launches the kernel for CUDA
-    tensors and runs the plain version for CPU tensors."""
+    tensors and runs the plain version for CPU tensors. ``dom_tol`` is the
+    blocked cycle's safeguard threshold."""
     from repro_torch.kernels import ops
 
     if cycle_mode == "auto":
         cycle_mode = ("blocked" if ops.prefer_blocked_cd(tile, block)
                       else "sequential")
     if cycle_mode == "blocked":
-        return partial(ops.blocked_cd, block=block)
+        return partial(ops.blocked_cd, block=block, dom_tol=dom_tol)
     if cycle_mode != "sequential":
         raise ValueError(f"unknown cycle_mode {cycle_mode!r}")
     return ops.gram_cd

@@ -14,7 +14,9 @@ and the per-block modes (the Gershgorin safeguard of
 ``core.subproblem.blocked_cycle_modes``) itself, in a prologue on the
 shared-memory G: one launch per call and no PyTorch op around it. Its
 row sums run in ascending column order, so its modes equal the plain
-version's except where a ratio lies within rounding of ``DOM_TOL``.
+version's except where a ratio lies within rounding of the threshold
+``dom_tol`` (``DOM_TOL`` by default), which the kernel takes as an
+argument.
 At B=1 the kernel equals gram_cd bit for bit. The plain version is
 ``ref.blocked_cd_ref``.
 """
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.subproblem import DOM_TOL
 from repro_torch.kernels.gram_cd import check_tile_operands, chunk_plan, current_stream
 
 #: launches of the kernel since the last reset (see kernels.ops)
@@ -43,18 +46,19 @@ def _launcher():
         lib = load("blocked_cd")
         p, i, q, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.blocked_cd_launch.argtypes = [p, q, p, q, p, q, p, q, p, p,
-                                          i, i, i, i, i, i, i, f, f, p]
+                                          i, i, i, i, i, i, i, f, f, f, p]
         lib.blocked_cd_launch.restype = ctypes.c_int
         _lib = lib
     return _lib.blocked_cd_launch
 
 
 def blocked_cd_kernel(G, c, beta, dbeta0, lam: float, nu: float, *,
-                      block: int = 16, modes_out=None):
+                      block: int = 16, modes_out=None, dom_tol: float = DOM_TOL):
     """d (M, F) such that dbeta <- dbeta0 + d (one blocked cycle per
     feature block) from G (M, F, F) and c, beta, dbeta0 (M, F) float32
     CUDA tensors (vectors may be row-strided). ``modes_out``, an int32
-    contiguous (M, F/B) tensor, receives the modes the kernel computed."""
+    contiguous (M, F/B) tensor, receives the modes the kernel computed
+    against the threshold ``dom_tol``."""
     global launches
     M, F, g_stride, (cs, bs, ds), bulk = check_tile_operands(G, (c, beta, dbeta0))
     if block < 1 or F % block:
@@ -71,7 +75,7 @@ def blocked_cd_kernel(G, c, beta, dbeta0, lam: float, nu: float, *,
                       dbeta0.data_ptr(), ds, d.data_ptr(),
                       None if modes_out is None else modes_out.data_ptr(),
                       M, F, block, plan.rows, plan.stages, plan.smem, int(bulk),
-                      float(lam), float(nu), stream)
+                      float(lam), float(nu), float(dom_tol), stream)
     if err:
         raise RuntimeError(f"blocked_cd launch failed: cudaError {err}")
     launches += 1

@@ -22,8 +22,9 @@
 //     of row j over its B block and its B/2 half, summing |G_jk| over the
 //     block's columns in ascending order (the lanes start at staggered
 //     columns so that they hit different banks); then each block's mode
-//     from the rows' maxima against DOM_TOL = 0.9 (NaN counts as failing,
-//     as in the plain version's amax). Where G does not fit in shared
+//     from the rows' maxima against the threshold dom_tol, an argument
+//     (0.9 by default in the wrappers; NaN counts as failing, as in the
+//     plain version's amax). Where G does not fit in shared
 //     memory the prologue streams it once through the ring and the cycle
 //     streams it again.
 //   cycle -- where B divides 32 (B = 1 .. 32) the blocks tile each 32-row
@@ -40,7 +41,6 @@
 //     cycle runs again with __fdiv_rn, so the result is always IEEE's.
 #include "cd_common.cuh"
 
-#define DOM_TOL 0.9f
 #define VECTORS 7            // c, h, base, rho (block), rho (half), deltas, modes
 
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -208,7 +208,7 @@ blocked_cd_kernel(const float* __restrict__ G, long long g_stride,
                   const float* __restrict__ dbeta0, long long d0_stride,
                   float* __restrict__ d_out, int* __restrict__ modes_out,
                   int F, int B, int rows, int stages, int bulk, float lam,
-                  float nu) {
+                  float nu, float dom_tol) {
     extern __shared__ __align__(128) float sm[];
     const int lane = threadIdx.x;
     const int m = blockIdx.x;
@@ -285,7 +285,7 @@ blocked_cd_kernel(const float* __restrict__ G, long long g_stride,
                 rf = max_nan(rf, rf_sh[b * B + r]);
                 rh = max_nan(rh, rh_sh[b * B + r]);
             }
-            mode = rf <= DOM_TOL ? 0 : ((even && rh <= DOM_TOL) ? 1 : 2);
+            mode = rf <= dom_tol ? 0 : ((even && rh <= dom_tol) ? 1 : 2);
         }
         mode_sh[b] = mode;
         if (modes_out != nullptr) modes_out[(size_t)m * nb + b] = mode;
@@ -305,15 +305,15 @@ blocked_cd_kernel(const float* __restrict__ G, long long g_stride,
 
 // Plain C entry point for ctypes. Device pointers as gram_cd_launch, plus
 // modes_out, an int32 (M, F/B) contiguous buffer the kernel fills with
-// the per-block modes, or null. rows, stages and smem come from
-// kernels/gram_cd.py chunk_plan(F, 7). Returns cudaGetLastError() after
+// the per-block modes, or null, and dom_tol, the safeguard's threshold.
+// rows, stages and smem come from kernels/gram_cd.py chunk_plan(F, 7). Returns cudaGetLastError() after
 // the launch (0 = launched).
 #define BLOCKED_CASE(N)                                                          \
     if (npl <= N) {                                                              \
         static int set = 0;                                                      \
         return cd_launch(blocked_cd_kernel<N>, set, M, smem, stream, G, g_stride, \
                          c, c_stride, beta, b_stride, dbeta0, d0_stride, d,      \
-                         modes_out, F, B, rows, stages, bulk, lam, nu);          \
+                         modes_out, F, B, rows, stages, bulk, lam, nu, dom_tol); \
     }
 
 extern "C" int blocked_cd_launch(const float* G, long long g_stride,
@@ -322,7 +322,8 @@ extern "C" int blocked_cd_launch(const float* G, long long g_stride,
                                  const float* dbeta0, long long d0_stride,
                                  float* d, int* modes_out, int M, int F, int B,
                                  int rows, int stages, int smem, int bulk,
-                                 float lam, float nu, void* stream) {
+                                 float lam, float nu, float dom_tol,
+                                 void* stream) {
     const int npl = (F + 31) / 32;
     BLOCKED_CASE(1)
     BLOCKED_CASE(2)

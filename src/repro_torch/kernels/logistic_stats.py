@@ -1,81 +1,88 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
-"""Triton kernel: fused logistic working statistics.
+"""CUDA kernel: fused logistic working statistics, the NLL reduced in the
+same launch.
 
 Replaces the TPU kernel ``repro/kernels/logistic_stats.py``
-``logistic_stats_pallas`` (its ``pl.pallas_call`` at line 50). One pass
-over the margin cache computes everything the outer iteration needs from
-the examples axis (paper eq. (4)):
+``logistic_stats_pallas`` (its ``pl.pallas_call`` at line 50); source
+``csrc/logistic_stats.cu``. One pass over the margin cache computes
+everything the outer iteration needs from the examples axis (paper eq.
+(4)):
 
     p = clip(sigmoid(m), 1e-5, 1 - 1e-5), w = max(p(1-p), 1e-6),
-    z = ((y+1)/2 - p)/w, and NLL partials sum softplus(-y m)
+    z = ((y+1)/2 - p)/w, and nll = sum softplus(-y m)
 
 Bound on the H100: device memory. Each example moves 16 bytes (m and y
 in, w and z out) for some twenty flops, far below the card's ratio of
-operations to bytes. The design keeps the pass to that one sweep: one
-program per BLOCK examples, masked ragged tail, contiguous vector loads
-and stores, and one NLL partial per program written to a buffer that the
-caller sums in a fixed order -- no atomics, so repeated runs are
-bit-identical. The softplus is max(t, 0) + log1p(exp(-|t|)), which does
-not overflow at any |m|.
+operations to bytes. The design keeps the call to that one sweep and one
+launch: a grid-stride pass sized to the SM count (:func:`grid`), float4
+loads and stores where aligned, and the NLL reduced in a fixed order in
+the same launch -- one partial per block, summed in block order by the
+last block to finish (an integer ticket), which then resets the ticket.
+No float atomics and no host read, so repeated launches are bit-identical
+and the call can be captured in a CUDA graph. The ticket and the
+partials are per-device buffers allocated once.
 
 Accuracy: z = ((y+1)/2 - p) / (p(1-p)) cancels in 1 - p as p -> 1, so one
 ulp of p moves z by up to ~4e-4 relative. The kernel therefore computes p
 as PyTorch's CUDA sigmoid does -- libdevice's expf and a correctly
-rounded division (not the approximate exp2 and division Triton would
-emit) -- and matches the plain version to rounding.
-
-Triton is imported inside the launching function: a host without the
-card imports this module but never launches.
+rounded division -- and every other operation with explicit rounding, so
+it matches the plain version (``ref.logistic_stats_ref``) to rounding.
 """
 from __future__ import annotations
 
-from functools import lru_cache
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
-BLOCK = 1024
+#: threads per block (THREADS in the source)
+THREADS = 256
+#: most blocks per SM of the grid-stride pass
+BLOCKS_PER_SM = 4
 
 #: launches of the kernel since the last reset (see kernels.ops)
 launches = 0
 
-#: triton.language and its libdevice, bound when the kernel is first built
-tl = None
-libdevice = None
+_lib = None
+#: per device: (SM count, partials buffer, ticket)
+_state: Dict[int, Tuple[int, torch.Tensor, torch.Tensor]] = {}
 
 
-def _logistic_stats_kernel(m_ptr, y_ptr, w_ptr, z_ptr, nll_ptr, n,
-                           BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    offs = pid * BLOCK + tl.arange(0, BLOCK)
-    live = offs < n
-    m = tl.load(m_ptr + offs, mask=live, other=0.0)
-    y = tl.load(y_ptr + offs, mask=live, other=0.0)
-    p = libdevice.div_rn(1.0, 1.0 + libdevice.exp(-m))
-    p = tl.minimum(tl.maximum(p, 1e-5), 1.0 - 1e-5)          # P_EPS clamp
-    w = tl.maximum(p * (1.0 - p), 1e-6)                      # W_MIN
-    z = libdevice.div_rn((y + 1.0) * 0.5 - p, w)
-    t = -y * m
-    sp = tl.maximum(t, 0.0) + libdevice.log1p(libdevice.exp(-tl.abs(t)))
-    sp = tl.where(live, sp, 0.0)
-    tl.store(w_ptr + offs, w, mask=live)
-    tl.store(z_ptr + offs, z, mask=live)
-    tl.store(nll_ptr + pid, tl.sum(sp, axis=0))
+def grid(n: int, vec: bool, sms: int) -> int:
+    """Blocks of the launch for n examples on a card of ``sms`` SMs: one
+    thread per float4 (``vec``) or per example, at most BLOCKS_PER_SM per
+    SM. The NLL's sum order depends on n, ``vec`` and this alone."""
+    units = n // 4 if vec else n
+    return max(1, min(-(-units // THREADS), BLOCKS_PER_SM * sms))
 
 
-@lru_cache(maxsize=1)
-def _compiled():
-    global tl, libdevice
-    import triton
-    import triton.language
-    from triton.language.extra import libdevice as _libdevice
+def _launcher():
+    global _lib
+    if _lib is None:
+        from repro_torch.kernels.build import load
 
-    tl, libdevice = triton.language, _libdevice
-    return triton.jit(_logistic_stats_kernel)
+        lib = load("logistic_stats")
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.logistic_stats_launch.argtypes = [p, p, p, p, q, i, i, p, p, p, p]
+        lib.logistic_stats_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib.logistic_stats_launch
+
+
+def _device_state(dev: torch.device):
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    st = _state.get(idx)
+    if st is None:
+        sms = torch.cuda.get_device_properties(idx).multi_processor_count
+        partials = torch.empty(BLOCKS_PER_SM * sms, dtype=torch.float32, device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        st = _state[idx] = (sms, partials, ticket)
+    return st
 
 
 def logistic_stats_kernel(m: torch.Tensor, y: torch.Tensor):
     """(w, z, nll) from margins m and labels y, both (n,) float32 contiguous
-    CUDA tensors. Launches on the current stream."""
+    CUDA tensors; nll is a 0-d tensor. One launch on the current stream."""
     global launches
     if not (m.is_cuda and y.is_cuda and m.device == y.device):
         raise ValueError("logistic_stats_kernel takes CUDA tensors on one device")
@@ -87,10 +94,16 @@ def logistic_stats_kernel(m: torch.Tensor, y: torch.Tensor):
     if not (m.is_contiguous() and y.is_contiguous()):
         raise ValueError("m and y must be contiguous")
     n = m.shape[0]
-    grid = max(1, -(-n // BLOCK))
+    sms, partials, ticket = _device_state(m.device)
     w = torch.empty_like(m)
     z = torch.empty_like(m)
-    partials = torch.empty(grid, dtype=torch.float32, device=m.device)
-    _compiled()[(grid,)](m, y, w, z, partials, n, BLOCK=BLOCK, num_warps=4)
+    nll = torch.empty((), dtype=torch.float32, device=m.device)
+    vec = all(t.data_ptr() % 16 == 0 for t in (m, y, w, z))
+    stream = torch.cuda.current_stream(m.device).cuda_stream
+    err = _launcher()(m.data_ptr(), y.data_ptr(), w.data_ptr(), z.data_ptr(), n,
+                      int(vec), grid(n, vec, sms), partials.data_ptr(),
+                      ticket.data_ptr(), nll.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"logistic_stats launch failed: cudaError {err}")
     launches += 1
-    return w, z, partials.sum()
+    return w, z, nll

@@ -19,7 +19,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.subproblem import NU
+from repro_torch.core.subproblem import DOM_TOL, NU
 from repro_torch.kernels import blocked_cd as _blocked_cd
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import gram_cd as _gram_cd
@@ -85,13 +85,16 @@ def prefer_blocked_cd(f: int, block: int) -> bool:
     return block > 1 and f >= 2 * block and f >= 32
 
 
-def blocked_cd(G, c, beta, dbeta0, lam, nu=NU, *, block: int = 16):
+def blocked_cd(G, c, beta, dbeta0, lam, nu=NU, *, block: int = 16, dom_tol=None):
     """Blocked semi-parallel CD cycle on Gram tiles (F/B dependent steps
-    instead of F); same contract as :func:`gram_cd`. On the card one
+    instead of F); same contract as :func:`gram_cd`. ``dom_tol`` is the
+    safeguard's Gershgorin threshold (None: ``DOM_TOL``). On the card one
     launch computes the per-block modes and the cycle."""
+    tol = DOM_TOL if dom_tol is None else dom_tol
     if _on_cuda(G, c, beta, dbeta0):
-        return _blocked_cd.blocked_cd_kernel(G, c, beta, dbeta0, lam, nu, block=block)
-    return ref.blocked_cd_ref(G, c, beta, dbeta0, lam, nu, block=block)
+        return _blocked_cd.blocked_cd_kernel(G, c, beta, dbeta0, lam, nu, block=block,
+                                             dom_tol=tol)
+    return ref.blocked_cd_ref(G, c, beta, dbeta0, lam, nu, block=block, dom_tol=tol)
 
 
 # ---------------------------------------------------------------------------
@@ -153,26 +156,31 @@ def _spmv_cpu(rows, vals, d, n_loc: int):
 def slab_spmv(rows, vals, d, *, n_loc: int, order: SlabOrder = None):
     """``X_F @ d`` from a feature slab (..., T, K) and d (..., T): the
     (..., n_loc) per-example product, O(nnz). ``order`` is the slab's
-    row-sorted order (:func:`slab_order`), which the card's kernel needs
-    and otherwise builds here."""
+    row-sorted order with its values (:func:`slab_order`), which the
+    card's kernel needs and otherwise builds here, once per call."""
     if _on_cuda(rows, vals, d):
         out = torch.zeros(*rows.shape[:-2], n_loc, dtype=torch.float32,
                           device=rows.device)
         return _slab_spmv.slab_spmv_kernel(
-            slab_order(rows) if order is None else order, vals, d, out,
+            slab_order(rows, vals) if order is None else order, vals, d, out,
             n_loc=n_loc, sign=1.0)
     return _spmv_cpu(rows, vals, d, n_loc)
 
 
-def slab_residual_update(r, rows, vals, d, *, order: SlabOrder = None):
+def slab_residual_update(r, rows, vals, d, *, order: SlabOrder = None, dbeta=None):
     """``r -= X_F @ d`` in place for the residuals r (..., n_loc) of every
-    feature block at once (one launch on the card); returns r."""
+    feature block at once; given ``dbeta`` (..., T), also ``dbeta += d``
+    in place (the solve's per-tile coefficient update). On the card both
+    are one launch; returns r."""
     n_loc = r.shape[-1]
     if _on_cuda(r, rows, vals, d):
         return _slab_spmv.slab_spmv_kernel(
-            slab_order(rows) if order is None else order, vals, d, r,
-            n_loc=n_loc, sign=-1.0)
-    return r.sub_(_spmv_cpu(rows, vals, d, n_loc))
+            slab_order(rows, vals) if order is None else order, vals, d, r,
+            n_loc=n_loc, sign=-1.0, dbeta=dbeta)
+    r.sub_(_spmv_cpu(rows, vals, d, n_loc))
+    if dbeta is not None:
+        dbeta += d
+    return r
 
 
 def slab_corr(rows, vals, v):

@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.objective import P_EPS, W_MIN, softplus
-from repro_torch.core.subproblem import NU, cd_cycle_blocked_tile, cd_cycle_gram_tile
+from repro_torch.core.subproblem import (DOM_TOL, NU, cd_cycle_blocked_tile,
+                                         cd_cycle_gram_tile)
 
 
 def logistic_stats_ref(m, y):
@@ -43,12 +44,12 @@ def gram_cd_ref(G, c, beta, dbeta0, lam, nu=NU):
                               dbeta0.to(f32), lam, nu)
 
 
-def blocked_cd_ref(G, c, beta, dbeta0, lam, nu=NU, *, block=16):
+def blocked_cd_ref(G, c, beta, dbeta0, lam, nu=NU, *, block=16, dom_tol=DOM_TOL):
     """Plain version of kernels.blocked_cd: the blocked cycle (bit-identical
-    to the sequential chain at block=1)."""
+    to the sequential chain at block=1), its safeguard at ``dom_tol``."""
     f32 = torch.float32
     return cd_cycle_blocked_tile(G.to(f32), c.to(f32), beta.to(f32),
-                                 dbeta0.to(f32), lam, nu, block=block)
+                                 dbeta0.to(f32), lam, nu, block=block, dom_tol=dom_tol)
 
 
 def _densify_slab(rows, vals, n_loc: int):

@@ -109,7 +109,7 @@ def slab_gram_kernel(rows, vals, w, r, *, rows_sorted: bool = False,
         order = None
     if order is None:
         order = slab_order(rows)
-    if (any(t.dtype != torch.int32 or not t.is_cuda for t in order)
+    if (any(t.dtype != torch.int32 or not t.is_cuda for t in (order.rows_s, order.perm))
             or tuple(order.rows_s.shape) != (*lead, T * K)
             or order.perm.shape != order.rows_s.shape):
         raise ValueError(f"order must be int32 CUDA tensors of shape {(*lead, T * K)}")

@@ -8,27 +8,35 @@ Replaces the TPU kernel ``repro/kernels/sparse_slab.py``
 Per batch row (a feature block), out[i] +/-= sum over the slots of
 example row i of value * d[feature]: into a zeroed output for margins
 (``ops.slab_spmv``), or subtracted in place from the (M, n) residuals of
-every feature block in one launch (``ops.slab_residual_update``).
+every feature block in one launch (``ops.slab_residual_update``), which
+can also advance the tile's coefficient update dbeta += d in the same
+launch.
 
-Bound on the H100: bytes (12 per live slot, one scattered 4-byte
+Bound on the H100: bytes (12 per slot, one scattered 4-byte
 read-modify-write per touched example row); the flops are nothing. The
 TPU kernel compares every slot with every 256-row output block; this one
 sums row-sorted runs: :func:`slab_order` sorts each batch row's slots by
-example row once, when the slabs are laid out, and the thread at the
-start of each run sums it in sorted order. One writer per output row and
-a fixed order per sum: no float atomics, bit-equal launches. The plain
-versions are ``ref.slab_spmv_scatter`` (what a CPU tensor runs) and the
-densify oracle ``ref.slab_spmv_ref``.
+example row once, when the slabs are laid out, and keeps the rows, the
+slot indices and the values in that order, so the kernel reads three
+unit-stride streams. Each block stages a chunk of them and d in shared
+memory, and the thread at the start of each run sums it left to right in
+sorted order. One writer per output row and a fixed order per sum: no
+float atomics, bit-equal launches. The plain versions are
+``ref.slab_spmv_scatter`` (what a CPU tensor runs) and the densify
+oracle ``ref.slab_spmv_ref``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 #: launches of the kernel since the last reset (see kernels.ops)
 launches = 0
+
+#: sorted positions per block of the kernel (THREADS * ITEMS in the source)
+CHUNK = 512
 
 _lib = None
 
@@ -36,17 +44,22 @@ _lib = None
 class SlabOrder(NamedTuple):
     """Slots of each batch row sorted by example row: ``rows_s`` the sorted
     rows and ``perm`` the slot (feature * K + k) each came from, both
-    (..., T * K) int32."""
+    (..., T * K) int32, and ``vals_s`` the float32 values in that order.
+    ``slab_gram`` reads only the first two, so ``vals_s`` may be None
+    there; :func:`slab_spmv_kernel` needs all three."""
 
     rows_s: torch.Tensor
     perm: torch.Tensor
+    vals_s: Optional[torch.Tensor] = None
 
 
-def slab_order(rows) -> SlabOrder:
+def slab_order(rows, vals=None) -> SlabOrder:
     """The row-sorted order of a slab (..., T, K), one stable sort over
-    each batch row's T * K slots (sentinels, the largest rows, last)."""
+    each batch row's T * K slots (sentinels, the largest rows, last);
+    given ``vals``, also the values in that order."""
     rows_s, perm = torch.sort(rows.flatten(-2), dim=-1, stable=True)
-    return SlabOrder(rows_s.to(torch.int32), perm.to(torch.int32))
+    vals_s = None if vals is None else vals.flatten(-2).gather(-1, perm).to(torch.float32)
+    return SlabOrder(rows_s.to(torch.int32), perm.to(torch.int32), vals_s)
 
 
 def _launcher():
@@ -56,7 +69,8 @@ def _launcher():
 
         lib = load("slab_spmv")
         p, i, q, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.slab_spmv_launch.argtypes = [p, p, q, p, q, p, q, p, q, i, i, i, i, f, p]
+        lib.slab_spmv_launch.argtypes = [p, p, q, p, q, p, q, p, q, p, q,
+                                          i, i, i, i, i, f, p]
         lib.slab_spmv_launch.restype = ctypes.c_int
         _lib = lib
     return _lib.slab_spmv_launch
@@ -69,17 +83,20 @@ def _rows2d(t, B: int, S: int):
     return t2 if S <= 1 or t2.stride(1) == 1 else t2.contiguous()
 
 
-def slab_spmv_kernel(order: SlabOrder, vals, d, out, *, n_loc: int, sign: float):
+def slab_spmv_kernel(order: SlabOrder, vals, d, out, *, n_loc: int, sign: float,
+                     dbeta=None):
     """out (..., n_out) += sign * X_F d on the card, in place, for a slab
     (..., T, K) given by its row-sorted ``order`` and float32 ``vals``,
-    and d (..., T). Returns ``out``."""
+    and d (..., T); the order must carry its values (``slab_order(rows,
+    vals)``). Given ``dbeta`` (..., T), a view with unit inner stride, the
+    launch also does dbeta += d. Returns ``out``."""
     global launches
     *lead, T, K = vals.shape
     S = T * K
     B = 1
     for s in lead:
         B *= s
-    tensors = (order.rows_s, order.perm, vals, d, out)
+    tensors = (order.rows_s, order.perm, vals, d, out) + (() if dbeta is None else (dbeta,))
     for t in tensors:
         if not t.is_cuda or t.device != vals.device:
             raise ValueError("slab_spmv takes CUDA tensors on one device")
@@ -95,18 +112,32 @@ def slab_spmv_kernel(order: SlabOrder, vals, d, out, *, n_loc: int, sign: float)
         raise ValueError(f"out must be (*{lead}, >= {n_loc}), got {tuple(out.shape)}")
     if B > 65535:
         raise ValueError(f"batch of {B} feature blocks exceeds the grid's 65535")
+    vals_s = order.vals_s
+    if vals_s is None:
+        raise ValueError("the order lacks its values: build it with slab_order(rows, vals)")
+    if vals_s.dtype != torch.float32 or vals_s.shape != order.rows_s.shape:
+        raise ValueError(f"order.vals_s must be float32 {(*lead, S)}")
     rs, pm = _rows2d(order.rows_s, B, S), _rows2d(order.perm, B, S)
     if rs.stride(0) != pm.stride(0):
         rs, pm = rs.contiguous(), pm.contiguous()
-    v2 = _rows2d(vals, B, S)
+    vs = _rows2d(vals_s, B, S)
     d2 = _rows2d(d, B, T)
     o2 = out.reshape(B, out.shape[-1])
     if o2.data_ptr() != out.data_ptr() or (out.shape[-1] > 1 and o2.stride(1) != 1):
         raise ValueError("out must be a writable view with unit inner stride")
+    db_ptr, db_stride = None, 0
+    if dbeta is not None:
+        if dbeta.dtype != torch.float32 or dbeta.shape != d.shape:
+            raise ValueError(f"dbeta must be float32 {tuple(d.shape)}")
+        db2 = dbeta.reshape(B, T)
+        if db2.data_ptr() != dbeta.data_ptr() or (T > 1 and db2.stride(1) != 1):
+            raise ValueError("dbeta must be a writable view with unit inner stride")
+        db_ptr, db_stride = db2.data_ptr(), db2.stride(0)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = _launcher()(rs.data_ptr(), pm.data_ptr(), rs.stride(0), v2.data_ptr(),
-                      v2.stride(0), d2.data_ptr(), d2.stride(0), o2.data_ptr(),
-                      o2.stride(0), B, S, K, int(n_loc), float(sign), stream)
+    err = _launcher()(rs.data_ptr(), pm.data_ptr(), rs.stride(0), vs.data_ptr(),
+                      vs.stride(0), d2.data_ptr(), d2.stride(0), o2.data_ptr(),
+                      o2.stride(0), db_ptr, db_stride, B, S, T, K, int(n_loc),
+                      float(sign), stream)
     if err:
         raise RuntimeError(f"slab_spmv launch failed: cudaError {err}")
     launches += 1

@@ -35,11 +35,12 @@ TOL = np.float32(tsub.DOM_TOL)
 ULP = np.spacing(TOL)
 
 
-def kernel_modes(G, block: int, nu=NU):
+def kernel_modes(G, block: int, nu=NU, dom_tol=TOL):
     """The kernel's prologue in numpy float32: per row j, the sums of |G_jk|
     over j's B block and B/2 half in ascending column order, minus |G_jj|,
     over h = G_jj + nu; each block's mode from the rows' maxima (NaN
-    propagates). Returns (modes, rho_full, rho_half), the ratios per
+    propagates) against the threshold ``dom_tol`` (a float32, as the
+    kernel takes it). Returns (modes, rho_full, rho_half), the ratios per
     block."""
     G = np.asarray(G, np.float32)
     f = G.shape[-1]
@@ -68,7 +69,8 @@ def kernel_modes(G, block: int, nu=NU):
     rh = ((part - ad).astype(np.float32) / h).astype(np.float32)
     rf = rf.reshape(*lead, nb, block).max(-1)
     rh = rh.reshape(*lead, nb, block).max(-1)
-    modes = np.where(rf <= TOL, 0, np.where(even & (rh <= TOL), 1, 2)).astype(np.int32)
+    tol = np.float32(dom_tol)
+    modes = np.where(rf <= tol, 0, np.where(even & (rh <= tol), 1, 2)).astype(np.int32)
     return modes, rf, rh
 
 
