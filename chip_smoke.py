@@ -48,7 +48,10 @@ of which fails the run with a non-zero exit:
    launches; ``slab_spmv`` with the tile's dbeta update fused bit-equal to
    the separate ``+=``, and with the order built by the dispatch
    (``order=None``) bit-equal to the layout's; an order without its
-   values refused before any launch;
+   values refused before any launch; and at the screened path's K classes
+   (8, 16, 32, 64 and the cell's 94, slots trimmed as a working-set gather
+   trims them), laid out by ``layout_slabs`` into one tile per block, as
+   the smallest restricted solve lays them out;
 7. sparse path -- ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).fit(
    SlabDesign(...), y, lam)`` with lam = lambda_max / 16 in both cycle
    modes: the strategy picks the slab-native solver, status OK, monotone
@@ -58,19 +61,44 @@ of which fails the run with a non-zero exit:
    row), held-out accuracy through ``decision_function`` on the test
    slabs, fit wall, ms per iteration and peak memory (the profile phase
    counts the device launches per tile step of each mode);
-8. sparse agreement -- an 8192 x 4096 slab fit on the card against the
+8. path -- the screened regularization path (paper Algorithm 5)
+   ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).path(SlabDesign(...), y,
+   path_len=8, eval_fn=make_design_eval(test slabs))`` on the cell, both
+   cycle modes: every point status OK; an independent KKT pass per point
+   (margins by the plain scatter, |g| by the plain ``slab_corr``): no
+   feature with beta_j = 0 outside the point's working set may have
+   |g_j| > lam (1 + 1e-3) + 1e-7 (those inside it, left at 0 by the
+   restricted solve's stopping rule, are reported); f non-increasing
+   along the grid; the lambda_max/16 point's f within 1e-4 of phase 7's
+   fit; ``logistic_stats``, ``slab_gram``, ``slab_spmv`` and the mode's
+   tile kernel each launched at least once per restricted-solve
+   iteration; host reads equal to the driver's (from its telemetry) plus
+   each solve's iterations + 2 plus the eval's; the first two points
+   under torch's sync debug mode synchronise only through the engine's
+   door. Per point: lambda, active, capacity, k_cap, KKT rounds,
+   deferred, nnz, f, iterations, wall, test AUPRC and accuracy; then the
+   path's wall, its wall down to lambda_max/16, one screen pass and the
+   peak memory;
+9. sparse agreement -- an 8192 x 4096 slab fit on the card against the
    same fit on the CPU, both slab-native, and one ``densify=True`` fit on
    both: relative objective gaps < 1e-4, and after a fixed 8 iterations
    (both sides taking the same steps) betas within rtol 1e-2 / atol 1e-3;
    the slab-native card fit under torch's sync debug mode synchronises
-   only through the engine's door;
-9. LM kernels -- ``flash_attention`` against its plain version at the
+   only through the engine's door; then paths (``path_len`` 6) on the
+   card against the CPU: 8192 x 4096 slabs on a (1, 16) mesh, flat and
+   bucketed, and a local dense 8192 x 2000 path: per point lambda within
+   rtol 1e-6 and a relative f gap < 1e-4, betas within rtol 1e-2 / atol
+   1e-3 where the support is at most n / 8, and nnz, active, capacity,
+   KKT rounds and the beta gap side by side; the flat path's CPU run also
+   against a densify-once CPU path (two plain solvers, no card: the
+   spread of beta at the same objective deeper on the path);
+10. LM kernels -- ``flash_attention`` against its plain version at the
    serving cell's attention shape (B=8, S=2048, H=32, Hk=4, D=64), one
    Hk == H shape and the reference's sweep shapes, in float32 (atol 2e-5)
    and bfloat16 (atol 3e-2, and on every element within half a bf16 ulp
    plus 2e-5 of the plain version's float32 result before its cast),
    causal and full, two launches bit-equal;
-10. LM serving cell -- tinyllama-1.1b at full width (22 layers, d_model
+11. LM serving cell -- tinyllama-1.1b at full width (22 layers, d_model
    2048, bf16, weights drawn on the card from seed 0) serves 8 prompts of
    2048 tokens plus 32 greedy tokens through ``repro_torch.launch.serve``
    ``generate``: exactly 22 ``flash_attention`` launches (one per layer
@@ -78,18 +106,20 @@ of which fails the run with a non-zero exit:
    kernel against the plain chunked path, and one host read for the
    whole generation under torch's sync debug mode; prefill ms, decode ms
    per token, tokens/s and peak memory;
-11. LM agreement -- tinyllama's float32 ``smoke()`` model with a 128-token
+12. LM agreement -- tinyllama's float32 ``smoke()`` model with a 128-token
    prompt on the card against the same model on the CPU: prefill logits
    within 1e-4, 8 greedy tokens equal;
-12. times -- each kernel, its plain version and, where one PyTorch call
+13. times -- each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
    ``slab_spmv`` also without its fused dbeta update and at the margins'
    shape (16 blocks of 65,536 features), beside its byte bound;
-13. profile -- device time by kernel (torch.profiler) for one dense fit
+14. profile -- device time by kernel (torch.profiler) for one dense fit
    per cycle mode, a 3-iteration sparse fit per cycle mode (with device
-   launches per tile step), one LM prefill and 8 decode steps after it; a
-   profile with no device time fails the run.
+   launches per tile step), the path's first three points per cycle
+   mode (busy and idle time, and its screen passes, gathers and layout
+   sorts timed apart with CUDA events), one LM prefill and 8 decode
+   steps after it; a profile with no device time fails the run.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
@@ -797,6 +827,25 @@ def phase_sparse_kernels(torch, gen, cell):
          (rra[:4] - ref.slab_spmv_scatter(rh, dvh, na),),
          oracle=(rra[:4] - ref.slab_spmv_ref(rh, vh, dh, na),), again=(again,))
     del rh, vh, dh, oh, dvh
+    # the path's restricted solves: slabs gathered at a working set's K
+    # class (8 ... 94, front-packed slots trimmed) and, at the smallest
+    # capacity M * T, laid out by layout_slabs into one tile per block
+    for kc in (8, 16, 32, 64, K):
+        lay1 = layout_slabs(rows[:M * T, 0, :kc], vals[:M * T, 0, :kc], M, T)
+        check(lay1.rows.shape[1] == 1, "a capacity of M * tile should be one tile per block")
+        R1, V1 = lay1.rows[:, 0], lay1.vals[:, 0]
+        o1 = SlabOrder(*(f[:, 0] for f in lay1.order))
+        s1 = ops._sentinel_zeroed(R1, V1, w, r, n)
+        got = slab_gram.slab_gram_kernel(R1, V1, w, r, rows_sorted=True, order=o1)
+        again = slab_gram.slab_gram_kernel(R1, V1, w, r, rows_sorted=True, order=o1)
+        hold("slab_gram", f"path K class {kc}, one tile per block (M={M} T={T})", got,
+             ref.slab_gram_join(s1[0], s1[2], s1[1], s1[3]), again=again)
+        got = slab_spmv.slab_spmv_kernel(o1, V1, d, r.clone(), n_loc=n, sign=-1.0)
+        again = slab_spmv.slab_spmv_kernel(o1, V1, d, r.clone(), n_loc=n, sign=-1.0)
+        dv1 = torch.where(R1 < n, V1, 0.0) * d[..., None]
+        hold("slab_spmv", f"path K class {kc}, residual update, one tile per block", (got,),
+             (r - ref.slab_spmv_scatter(R1.clamp_max(n), dv1, n),), again=(again,))
+        del lay1, R1, V1, o1, s1, dv1
     inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, n=n, margins=(Rm, Vm, beta))
     del lay
     return errs, inputs
@@ -872,7 +921,7 @@ def phase_sparse_path(torch, cell, card):
               f"sparse {mode}: {syncs} host reads, expected {res.n_iters} iterations + 1 "
               f"fetch + 1 entry read")
         check(acc > 0.5, f"sparse {mode}: held-out accuracy {acc} is not above chance")
-        fits[mode] = (wall, res.n_iters, syncs, peak)
+        fits[mode] = (wall, res.n_iters, syncs, peak, res.f, res.beta)
     return launches, fits, lam
 
 
@@ -940,6 +989,306 @@ def phase_sparse_agreement(torch):
                 check(torch.allclose(beta_gpu, cpu.beta, rtol=1e-2, atol=1e-3),
                       f"{label}: card vs cpu betas after 8 iterations disagree beyond "
                       f"rtol 1e-2 / atol 1e-3")
+
+
+# ---------------------------------------------------------------------------
+# the screened regularization path (paper Algorithm 5) on the sparse cell
+# ---------------------------------------------------------------------------
+
+#: grid points of the path phase: lambda_max / 2 ... lambda_max / 256
+PATH_LEN = 8
+#: index of lambda_max / 16 on the grid, the lambda of the sparse path phase's fit
+PATH_DIRECT = 3
+KKT_TOL = 1e-3
+MAX_KKT_ROUNDS = 8
+
+
+class PathLog:
+    """Wraps the estimator's ``_solve`` and ``_screened_point`` for one
+    run (``with``): each restricted solve's host reads, iterations,
+    status, capacity, slab K and wall, and each point's certified working
+    set (on the driver's work axis)."""
+
+    def __init__(self):
+        from repro_torch.api import estimator
+        from repro_torch.core import engine
+
+        self.mod, self.engine = estimator, engine
+        self.real = (estimator._solve, estimator._screened_point)
+        self.rows, self.masks = [], []
+
+    def __enter__(self):
+        solve_fn, point_fn = self.real
+
+        def solve(design, y, lam, strat, **kw):
+            s0, t0 = self.engine.host_syncs, time.perf_counter()
+            res = solve_fn(design, y, lam, strat, **kw)
+            self.rows.append(dict(lam=lam, reads=self.engine.host_syncs - s0,
+                                  iters=res.n_iters, status=res.status,
+                                  cap=design.shape[1], k=getattr(design.inner, "k", None),
+                                  ms=(time.perf_counter() - t0) * 1e3))
+            return res
+
+        def point(*args, **kw):
+            out = point_fn(*args, **kw)
+            self.masks.append(out[4])
+            return out
+
+        self.mod._solve, self.mod._screened_point = solve, point
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._solve, self.mod._screened_point = self.real
+
+
+class TimedEval:
+    """An ``eval_fn`` that also keeps each call's host clock span and
+    counts its host reads (the per-point walls are the gaps between
+    calls)."""
+
+    def __init__(self, fn):
+        from repro_torch.core import engine
+
+        self.fn, self.engine, self.marks, self.reads = fn, engine, [], 0
+
+    def __call__(self, beta):
+        t0, s0 = time.perf_counter(), self.engine.host_syncs
+        out = self.fn(beta)
+        self.reads += self.engine.host_syncs - s0
+        self.marks.append((t0, time.perf_counter()))
+        return out
+
+
+def driver_reads(res, n_solves: int, slab_mesh: bool = True) -> int:
+    """The path driver's host reads, from its telemetry: lambda_max; per
+    point the final count and (nnz, f); per KKT round the working-set and
+    violation counts, and for each round that admitted violators under
+    the budget the budget's and the admitted count; per restricted solve
+    of a front-packed slab mesh its K class."""
+    total = 1
+    for s in res.screen:
+        R = s["kkt_rounds"]
+        total += 2 + 2 * R + 2 * sum(1 for r in range(1, R) if r < MAX_KKT_ROUNDS - 1)
+    return total + (n_solves if slab_mesh else 0)
+
+
+def kkt_recheck(torch, rows, vals, y, beta, lam: float, working):
+    """An independent KKT pass at ``beta``: margins by the plain scatter,
+    |g| by the plain ``slab_corr``. Returns, for the features with
+    beta_j = 0 outside the point's certified working set ``working`` (the
+    ones the screen discarded) and inside it, the count with |g_j| > lam
+    (1 + KKT_TOL) + 1e-7 and the largest |g_j| / lam."""
+    from repro_torch.kernels import ops, ref
+
+    n = y.shape[0]
+    r2, v2 = rows[:, 0], vals[:, 0]
+    m = ref.slab_spmv_scatter(r2.clamp_max(n), torch.where(r2 < n, v2, 0.0) * beta[:, None],
+                              n)
+    g = ops.slab_corr(r2, v2, torch.sigmoid(m) - (y + 1.0) * 0.5).abs()
+    over = g > lam * (1.0 + KKT_TOL) + 1e-7
+    out = []
+    for part in (torch.logical_and(beta == 0, ~working), torch.logical_and(beta == 0, working)):
+        out.append((int((over & part).sum()),
+                    float(torch.where(part, g, 0.0).max()) / lam))
+    return out
+
+
+def phase_path(torch, cell, card, direct):
+    """``LogisticL1.path`` on the cell at full width, a (1, 16) mesh, both
+    cycle modes; ``direct`` maps a mode to the sparse path phase's fit
+    (lam, f, beta) at lambda_max / 16."""
+    from repro_torch.api import (LogisticL1, ShardedDesign, SlabDesign, lambda_max_design,
+                                 make_design_eval)
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    (rows, vals, y), (rt, vt, yt) = cell
+    n, p = y.shape[0], rows.shape[0]
+    mesh = make_dev_mesh(1, SPARSE_M)
+    design = SlabDesign(rows, vals, n)
+    lmax = float(lambda_max_design(design, y))
+    sharded = ShardedDesign(design, mesh, tile=SPARSE_OPTS["tile"])
+    m0 = torch.zeros(n, device="cuda")
+    screen_ms = time_ms(torch, lambda: sharded._screen_abs_work(y, m0),
+                        torch.empty(1, device="cuda"), reps=10)
+    print(f"[path] one screen pass over p = {p} (|X^T v| through slab_corr, in chunks): "
+          f"{screen_ms:.3f} ms (CUDA events, median of 10), on {card}")
+    del sharded
+    launches, walls = {}, {}
+    for mode in ("sequential", "blocked"):
+        opts = DGLMNETOptions(cycle_mode=mode, **SPARSE_OPTS)
+        tile_kernel = "gram_cd" if mode == "sequential" else "blocked_cd"
+        # the first two points under torch's sync debug mode: nothing may
+        # synchronise but the engine's counted door
+        head, sites, stacks = under_sync_debug(torch, lambda: LogisticL1(
+            opts, mesh=mesh, device="cuda").path(design, y, path_len=2))
+        print(f"[path] {mode}: first two points under sync debug mode: f {list(head.f)}; "
+              f"synchronising calls by call site: {dict(sites)}")
+        check_sync_sites(sites, stacks, f"path {mode}")
+        evals = TimedEval(make_design_eval(SlabDesign(rt, vt, yt.shape[0]), yt, mesh=mesh,
+                                           tile=opts.tile))
+        est = LogisticL1(opts, mesh=mesh, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        engine.host_syncs = 0
+        with PathLog() as log:
+            t0 = time.perf_counter()
+            res = est.path(design, y, path_len=PATH_LEN, eval_fn=evals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        syncs = engine.host_syncs
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        solves = log.rows
+        iters = sum(s["iters"] for s in solves)
+        ends = [t0] + [b for _, b in evals.marks]
+        pt_ms = [(a - ends[i]) * 1e3 for i, (a, _) in enumerate(evals.marks)]
+        print(f"[path] {mode}: lambda_max {res.lambdas[0] * 2:.6f} (lambda_max_design "
+              f"{lmax:.6f}), {len(res)} points, {len(solves)} restricted solves, "
+              f"{iters} solve iterations")
+        for i, pt in enumerate(res):
+            at = [s for s in solves if s["lam"] == pt.lam]
+            print(f"[path] {mode} point {i}: lam {pt.lam:.6f} active {pt.screen.get('active')} "
+                  f"capacity {pt.screen.get('capacity')} k_cap {at[-1]['k'] if at else None} "
+                  f"kkt_rounds {pt.screen.get('kkt_rounds')} deferred "
+                  f"{pt.screen.get('deferred')} nnz {pt.nnz} f {pt.f:.4f} iters {pt.n_iters} "
+                  f"(all solves {sum(s['iters'] for s in at)}) wall {pt_ms[i]:.1f} ms "
+                  f"auprc {pt.metrics['auprc']:.4f} accuracy {pt.metrics['accuracy']:.4f} "
+                  f"on {card}")
+        for s in solves:
+            print(f"[path] {mode} solve: lam {s['lam']:.6f} cap {s['cap']} K {s['k']} "
+                  f"iters {s['iters']} reads {s['reads']} {s['ms']:.1f} ms "
+                  f"({s['cap'] // (SPARSE_M * opts.tile)} tile steps per iteration)")
+        to16 = sum(pt_ms[:PATH_DIRECT + 1])
+        d_lam, d_f, d_beta = direct[mode]
+        print(f"[path] {mode}: path wall {wall * 1e3:.1f} ms ({sum(pt_ms):.1f} ms in the "
+              f"points, the eval's {sum(b - a for a, b in evals.marks) * 1e3:.1f} ms not), "
+              f"down to lambda_max/16 {to16:.1f} ms; peak device memory {peak:.2f} GB; host "
+              f"syncs {syncs}; launches {counts}; on {card}")
+        print(f"[path] {mode}: point {PATH_DIRECT} lam {res.lambdas[PATH_DIRECT]:.6f} f "
+              f"{res.f[PATH_DIRECT]:.4f} against the direct fit's lam {d_lam:.6f} f {d_f:.4f} "
+              f"(rel gap {abs(res.f[PATH_DIRECT] - d_f) / abs(d_f):.3g})")
+        check(res.all_ok and all(s["status"] == 0 for s in solves),
+              f"path {mode}: a point or solve tripped: {list(res.statuses)}")
+        check(res.betas.shape == (PATH_LEN, p) and bool(torch.isfinite(res.betas).all()),
+              f"path {mode}: betas are not a finite ({PATH_LEN}, {p}) stack")
+        check(all(res.f[i + 1] <= res.f[i] for i in range(len(res) - 1)),
+              f"path {mode}: f increases along the grid: {list(res.f)}")
+        check(abs(res.lambdas[PATH_DIRECT] - d_lam) <= 1e-6 * d_lam,
+              f"path {mode}: grid point {PATH_DIRECT} is not lambda_max / 16")
+        check(abs(res.f[PATH_DIRECT] - d_f) <= 1e-4 * abs(d_f),
+              f"path {mode}: f at lambda_max/16 {res.f[PATH_DIRECT]} vs the direct fit's {d_f}")
+        for name in ("logistic_stats", "slab_gram", "slab_spmv", tile_kernel):
+            check(counts[name] >= iters, f"path {mode}: {name} launched {counts[name]} times "
+                  f"for {iters} restricted-solve iterations")
+            launches[name] = launches.get(name, 0) + counts[name]
+        for s in solves:
+            check(s["reads"] == s["iters"] + 2, f"path {mode}: a restricted solve read the "
+                  f"device {s['reads']} times for {s['iters']} iterations (+ 2 expected)")
+        want = driver_reads(res, len(solves)) + sum(s["reads"] for s in solves) + evals.reads
+        check(syncs == want, f"path {mode}: {syncs} host reads, expected {want} (driver "
+              f"{driver_reads(res, len(solves))}, solves, eval {evals.reads})")
+        check(len(log.masks) == len(res) and log.masks[0].shape[0] == p,
+              f"path {mode}: expected one working set of {p} features per point")
+        for i, pt in enumerate(res):
+            (out_bad, out_ratio), (in_bad, in_ratio) = kkt_recheck(
+                torch, rows, vals, y, res.betas[i], pt.lam, log.masks[i])
+            print(f"[path] {mode} point {i}: independent KKT pass, beta_j = 0 outside the "
+                  f"working set: {out_bad} over lam (1 + {KKT_TOL}) + 1e-7, max |g_j| / lam "
+                  f"{out_ratio:.6f}; inside it (left at 0 by the restricted solve): {in_bad} "
+                  f"over, max |g_j| / lam {in_ratio:.6f}")
+            check(out_bad == 0, f"path {mode} point {i}: {out_bad} features the screen "
+                  f"discarded fail the KKT condition")
+        # the same stopping rule in the direct fit, where every feature is
+        # in the problem: coordinates it leaves at 0 above lam (1 + KKT_TOL)
+        (_, _), (d_bad, d_ratio) = kkt_recheck(torch, rows, vals, y, d_beta, d_lam,
+                                               torch.ones(p, dtype=torch.bool, device="cuda"))
+        print(f"[path] {mode}: the direct fit at lambda_max/16 (no screen): {d_bad} features "
+              f"with beta_j = 0 over lam (1 + {KKT_TOL}) + 1e-7, max |g_j| / lam {d_ratio:.6f}")
+        walls[mode] = dict(wall_ms=wall * 1e3, to16_ms=to16, peak=peak, syncs=syncs,
+                           solves=len(solves), iters=iters, screen_ms=screen_ms)
+    return launches, walls
+
+
+def phase_path_agreement(torch, n: int = 8192, p: int = 4096, n_dense: int = 10_240):
+    """Paths on the card against the same paths on the CPU (the plain
+    versions), ``path_len`` 6, as a user runs them: an 8192 x 4096 slab
+    path on a (1, 16) mesh, flat and bucketed (``to_slab_buckets``), and
+    a local dense path on 8192 x 2000. Per point: lambda within rtol 1e-6
+    and a relative f gap < 1e-4; nnz, active, capacity, KKT rounds and the
+    largest beta gap side by side; betas within rtol 1e-2 / atol 1e-3 at
+    the points whose support (nnz) is at most n / 8, at least eight
+    examples per coefficient. Deeper on these slabs the support reaches a
+    third of n and more, and a float32 objective fixes beta only to about
+    1e-1 there: two plain solvers on the CPU (the flat path slab-native
+    and ``densify=True``: the same math in another sum order) differ by
+    that much at the same objective, which this phase prints beside the
+    card's comparison."""
+    from repro_torch.api import BucketedSlabDesign, DenseDesign, LogisticL1, SlabDesign
+    from repro_torch.configs.glm import GLM_EPSILON
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.data.byfeature import ByFeature, to_slab_buckets
+    from repro_torch.data.synthetic import make_glm_dataset
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    density = 0.0015
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, vals, y = slab_data(torch, gen, n, p, density,
+                              slab_truth(torch, gen, p, density, "cuda"), "cuda")
+    buckets = to_slab_buckets(ByFeature(rows[:, 0].cpu(), vals[:, 0].cpu(), n), 1)
+    ds = make_glm_dataset(replace(GLM_EPSILON, num_examples=n_dense),
+                          torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    opts = DGLMNETOptions(tile=128, block=16, max_iters=100)
+    cpu_mesh = make_dev_mesh(1, SPARSE_M, device="cpu")
+    cases = [
+        ("slab (1, 16) flat", SlabDesign(rows, vals, n), y, opts, True),
+        (f"slab (1, 16) bucketed (K classes {buckets.k_classes})",
+         BucketedSlabDesign(buckets, n), y, opts, True),
+        (f"dense local {ds.X_train.shape[0]}x{ds.X_train.shape[1]}", DenseDesign(ds.X_train),
+         ds.y_train, replace(opts, num_blocks=16), False),
+    ]
+
+    def hold(label, a_path, b_path, names, n_rows, betas=True):
+        held = 0
+        for i, (a, b) in enumerate(zip(a_path, b_path)):
+            gap = abs(a.f - b.f) / abs(b.f)
+            db = max_err(a.beta.cpu(), b.beta.cpu())
+            keys = ("active", "capacity", "kkt_rounds")
+            held_here = betas and b.nnz <= n_rows // 8
+            print(f"[path-agree] {label} point {i}: lam {a.lam:.6f} / {b.lam:.6f}, f "
+                  f"{a.f:.6f} / {b.f:.6f} (rel gap {gap:.3g}), nnz {a.nnz} / {b.nnz}, "
+                  + ", ".join(f"{k} {a.screen[k]} / {b.screen[k]}" for k in keys)
+                  + f", max|dbeta| {db:.3g} ({names}; betas "
+                  + ("held" if held_here else "printed") + ")")
+            check(abs(a.lam - b.lam) <= 1e-6 * b.lam, f"{label} point {i}: lambdas differ")
+            check(gap < 1e-4, f"{label} point {i}: {names} objective gap {gap}")
+            if held_here:
+                held += 1
+                check(torch.allclose(a.beta.cpu(), b.beta.cpu(), rtol=1e-2, atol=1e-3),
+                      f"{label} point {i}: {names} betas disagree beyond rtol 1e-2 / atol 1e-3")
+        check(held or not betas, f"{label}: no point's support is within n / 8")
+
+    for label, design, yv, o, on_mesh in cases:
+        t0 = time.perf_counter()
+        gpu = LogisticL1(o, mesh=make_dev_mesh(1, SPARSE_M) if on_mesh else None,
+                         device="cuda").path(design, yv, path_len=6)
+        t_gpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_est = LogisticL1(o, mesh=cpu_mesh if on_mesh else None, device="cpu")
+        cpu = cpu_est.path(design.to("cpu"), yv.cpu(), path_len=6)
+        t_cpu = time.perf_counter() - t0
+        print(f"[path-agree] {label}: card {t_gpu:.1f} s, cpu {t_cpu:.1f} s")
+        check(gpu.all_ok and cpu.all_ok, f"{label}: a point tripped: {list(gpu.statuses)}, "
+              f"{list(cpu.statuses)}")
+        hold(label, gpu, cpu, "card / cpu", design.shape[0])
+        if label.endswith("flat"):
+            dense = cpu_est.path(design.to("cpu"), yv.cpu(), path_len=6, densify=True)
+            check(dense.all_ok, f"{label}: a densify-once cpu point tripped")
+            hold(f"{label}, cpu only", cpu, dense, "cpu slab-native / cpu densify-once",
+                 design.shape[0], betas=False)
 
 
 # ---------------------------------------------------------------------------
@@ -1431,7 +1780,91 @@ def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
             if count >= steps:
                 print(f"[profile] {label}:   {count / steps:.2f} per tile step: {name[:90]}")
     del rows, vals, y
+    profile_path(torch, cell, card)
     profile_prefill(torch, lm_inputs, card)
+
+
+#: the path's device-bound stages timed apart in its profile: (label,
+#: owner, attribute)
+PATH_STAGES = (("screen passes", "ShardedDesign", "_screen_abs_work"),
+               ("gathers", "ShardedDesign", "_gather_work"),
+               ("layout sorts", "estimator", "layout_slabs"))
+
+
+def profile_path(torch, cell, card):
+    """The path's first ``PATH_DIRECT`` points (lambda_max/2 ... /8; reading
+    a profile takes the host about 6 s per thousand tile steps) per
+    cycle mode under torch.profiler: busy and idle time and the device
+    time by kernel. Its
+    device-bound stages (screen passes, working-set gathers, the layout
+    sorts of each restricted solve) are bracketed by a synchronise and
+    CUDA events, so each one's device time is read apart (an upper bound
+    of its busy time); the rest of the busy time is the restricted
+    solves' tile steps and line searches and the driver's elementwise
+    work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import LogisticL1, ShardedDesign, SlabDesign, estimator
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    owners = {"estimator": estimator, "ShardedDesign": ShardedDesign}
+    saved = [(owners[o], a, getattr(owners[o], a)) for _, o, a in PATH_STAGES]
+    spans = []
+
+    def timed(label, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((label, start, end))
+            return out
+        return run
+
+    (rows, vals, y), _ = cell
+    design = SlabDesign(rows, vals, y.shape[0])
+    try:
+        for (label, _, _), (owner, attr, fn) in zip(PATH_STAGES, saved):
+            setattr(owner, attr, timed(label, fn))
+        for mode in ("sequential", "blocked"):
+            est = LogisticL1(DGLMNETOptions(cycle_mode=mode, **SPARSE_OPTS),
+                             mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
+            spans.clear()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = est.path(design, y, path_len=PATH_DIRECT)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+            rows_ = []
+            for ev in prof.key_averages():
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "self_cuda_time_total", 0)
+                if us > 0 and getattr(ev.device_type, "name", "") == "CUDA":
+                    rows_.append((us / 1e3, ev.count, ev.key))
+            rows_.sort(reverse=True)
+            label = f"path {mode} (lambda_max/2 ... /{2 ** PATH_DIRECT})"
+            check(bool(rows_), f"profile {label}: the profiler recorded no device time")
+            busy = sum(r[0] for r in rows_)
+            report_profile(label, f"{len(res)} points", rows_, busy, wall_ms, card)
+            stage_ms = Counter()
+            for name, start, end in spans:
+                stage_ms[name] += start.elapsed_time(end)
+            for name, _, _ in PATH_STAGES:
+                print(f"[profile] {label}: {name}: {stage_ms[name]:.2f} ms of device time "
+                      f"({stage_ms[name] / busy:.1%} of busy), "
+                      f"{sum(1 for s in spans if s[0] == name)} calls")
+            rest = busy - stage_ms["screen passes"] - stage_ms["gathers"]
+            print(f"[profile] {label}: restricted solves and the driver's elementwise work: "
+                  f"{rest:.2f} ms ({rest / busy:.1%} of busy; the layout sorts within it); "
+                  f"reading the profile took {time.perf_counter() - t1:.1f} s on the host")
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
 
 
 def phase_sparse_host(torch, card, repeats: int = 2):
@@ -1594,7 +2027,12 @@ def main() -> int:
     sparse_launches, sparse_fits, sparse_lam = phase_sparse_path(torch, cell, card)
     for name, count in sparse_launches.items():
         launches[name] = launches.get(name, 0) + count
+    path_launches, path_walls = phase_path(
+        torch, cell, card, {mode: (sparse_lam, *fit[4:]) for mode, fit in sparse_fits.items()})
+    for name, count in path_launches.items():
+        launches[name] = launches.get(name, 0) + count
     phase_sparse_agreement(torch)
+    phase_path_agreement(torch)
     errs.update(phase_lm_kernels(torch, gen))
     lm_launches, lm_stats, lm_inputs = phase_lm(torch, card)
     launches.update(lm_launches)
@@ -1605,10 +2043,15 @@ def main() -> int:
         print(f"[times] fit {mode}: {wall:.3f} s whole fit (again {wall2:.3f} s), "
               f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
               f"{syncs} host syncs, on {card}")
-    for mode, (wall, iters, syncs, peak) in sparse_fits.items():
+    for mode, (wall, iters, syncs, peak, _, _) in sparse_fits.items():
         print(f"[times] sparse fit {mode}: {wall:.3f} s whole fit, "
               f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
               f"{syncs} host syncs, {peak:.2f} GB peak, on {card}")
+    for mode, w in path_walls.items():
+        print(f"[times] path {mode} ({PATH_LEN} points): {w['wall_ms']:.1f} ms, down to "
+              f"lambda_max/16 {w['to16_ms']:.1f} ms, {w['solves']} restricted solves of "
+              f"{w['iters']} iterations in all, {w['syncs']} host syncs, {w['peak']:.2f} GB "
+              f"peak, one screen pass {w['screen_ms']:.3f} ms, on {card}")
     print(f"[times] lm serve {LM_ARCH}: prefill {lm_stats['prefill_ms']:.2f} ms, decode "
           f"{lm_stats['decode_ms_per_token']:.3f} ms/token, whole generation "
           f"{lm_stats['wall_s']:.3f} s, {lm_stats['peak_gb']:.2f} GB peak, on {card}")

@@ -11,6 +11,10 @@ and warm-starts from a JAX solution::
 :func:`lm_params_from_reference` loads an LM's reference parameter tree
 (as numpy arrays: ``jax.tree.map(np.asarray, init_params(key, cfg))``)
 into the port's model, unstacking each segment's leading layer axis.
+
+:func:`path_from_reference` turns the reference's ``PathResult`` (its
+arrays read as numpy) into the port's, so the two paths can be set side
+by side, point by point.
 """
 from __future__ import annotations
 
@@ -27,6 +31,28 @@ def from_reference(beta: np.ndarray, lam: float, *, device=DEFAULT_DEVICE) -> di
         raise ValueError(f"beta must be (p,), got shape {beta.shape}")
     return {"beta_": torch.tensor(beta, device=resolve_device(device)),
             "lam_": float(lam)}
+
+
+def path_from_reference(ref, *, device=DEFAULT_DEVICE):
+    """The port's :class:`~repro_torch.api.types.PathResult` holding the
+    reference's: stacked betas on ``device``, per-lambda scalars, metric
+    and telemetry dicts and statuses."""
+    from repro_torch.api.types import PathResult
+
+    def scalars(d):
+        return {k: (v.item() if isinstance(v, np.generic) else v) for k, v in d.items()}
+
+    status = getattr(ref, "status", None)
+    return PathResult(
+        lambdas=np.asarray(ref.lambdas, np.float64),
+        betas=torch.tensor(np.asarray(ref.betas, np.float32), device=resolve_device(device)),
+        nnz=np.asarray(ref.nnz, np.int64),
+        f=np.asarray(ref.f, np.float64),
+        n_iters=np.asarray(ref.n_iters, np.int64),
+        metrics=[scalars(d) for d in ref.metrics],
+        screen=[scalars(d) for d in ref.screen],
+        status=None if status is None else np.asarray(status, np.int64),
+    )
 
 
 def _as_tensor(a) -> torch.Tensor:

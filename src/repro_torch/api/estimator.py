@@ -1,26 +1,47 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """``LogisticL1`` -- the port's front door, the counterpart of
-``repro/api/estimator.py``.
+``repro/api/estimator.py``:
 
-Ported so far: ``fit`` (with ``warm_start`` and ``densify=``) on dense
-and slab designs, locally or on a (1, M) mesh (``mesh=``, the by-feature
-slab solve of paper Algorithm 4 with its M feature blocks as one batch
-on the device), scoring (``decision_function``, ``predict_proba``,
-``predict``; slab designs through ``kernels.slab_spmv``), the
-sklearn-style surface and :func:`lambda_max_design`. The estimator runs
-on ``device`` (default ``"cuda"``, raising without a card); data given
-as numpy arrays or tensors elsewhere is moved there once, at the entry
-point. The screened path comes with a later slice.
+* ``fit(design, y, lam)`` -- one solve (with ``warm_start`` and
+  ``densify=``) on dense, slab and bucketed designs, locally or on a
+  (1, M) mesh (``mesh=``: the by-feature slab solve of paper Algorithm 4
+  with its M feature blocks as one batch on the device);
+* ``path(design, y)`` -- the warm-started, screened regularization path
+  (paper Algorithm 5): strong-rule working sets, KKT-certified, solved
+  restricted at power-of-two capacities, with the working set carried
+  across points, a violation budget per KKT round, and the per-lambda
+  degradation ladder (rewarm, sequential, skip);
+* scoring (``decision_function``, ``predict_proba``, ``predict``), the
+  sklearn-style surface, :func:`lambda_max_design` and
+  :func:`make_design_eval`.
+
+The estimator runs on ``device`` (default ``"cuda"``, raising without a
+card); data given as numpy arrays or tensors elsewhere is moved there
+once, at the entry point.
+
+Host reads (all through ``engine.host_read``, counted): a solve's own
+(one per outer iteration, one fetch, plus one entry read of a slab's
+largest row); the path driver one where the reference's driver makes
+one ``device_get`` -- lambda_max, per KKT round the working-set count,
+the slab K class (slab meshes), the violation count and, when violators
+are budgeted, the budget's and the admitted count, per point the final
+count and (nnz, f). :func:`make_design_eval` reads each point's scores
+once. Not ported yet: checkpointed and resumed paths
+(``checkpoint_every=``, ``resume_from=``; ROADMAP queue 1 item 6) and the
+trace spans (item 7).
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass, field, replace
-from typing import Optional
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.design import ShardedDesign, as_design
 from repro_torch.api.strategy import Strategy, resolve
+from repro_torch.api.types import PathPoint, PathResult
 from repro_torch.core import engine
 from repro_torch.core.dglmnet import DGLMNETOptions, FitResult, build_solver
 from repro_torch.core.distributed import (
@@ -33,7 +54,17 @@ from repro_torch.core.distributed import (
     make_slab_margins,
     pad_features,
 )
+from repro_torch.core.objective import objective
+from repro_torch.core.screening import (
+    _nll_residual,
+    budgeted_admission,
+    capacity_bucket,
+    kkt_violations,
+    strong_rule_mask,
+    take_fill,
+)
 from repro_torch.core.subproblem import layout_blocks
+from repro_torch.data.byfeature import k_class, scatter_features
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -43,6 +74,80 @@ def lambda_max_design(design, y):
     exactly -y/2), so dense and slab layouts share one definition."""
     y = torch.as_tensor(y, dtype=torch.float32)
     return design.correlation(0.5 * y).abs().max()
+
+
+def _lambda_grid(lmax: float, path_len: int,
+                 extra_lams: Optional[List[float]]) -> List[float]:
+    lams = [lmax * 2.0 ** (-i) for i in range(1, path_len + 1)]
+    if extra_lams:
+        lams = sorted(set(lams) | set(extra_lams), reverse=True)
+    return lams
+
+
+def _screened_point(p_cap, lam, lam_prev, beta, m, *, grad_abs,
+                    restricted_solve, empty_result, cap_tile, kkt_tol,
+                    max_kkt_rounds, prev_mask=None,
+                    violation_budget: Optional[int] = 512):
+    """One path point of the strong-rule/KKT loop, solver- and
+    layout-agnostic (masks and beta on the driver's feature axis;
+    ``p_cap`` the capacity ceiling).
+
+    ``grad_abs(m) -> |g|`` is the full gradient pass;
+    ``restricted_solve(mask, cap, beta) -> (res, beta_full, m_full)``
+    solves the capacity-``cap`` restricted problem warm-started from
+    ``beta``. Only the counts cross to the host, each through one
+    ``engine.host_read``. ``prev_mask`` carries the working set across
+    points (blitz-style growth); within a point violators re-enter under
+    a budget of ``min(violation_budget, 2 |A|)`` per round, the strongest
+    first, lifted on the penultimate round so certification completes
+    within ``max_kkt_rounds``. Returns (res, beta, m, info, mask)."""
+    g_abs = grad_abs(m)
+    mask = strong_rule_mask(g_abs, lam, lam_prev, beta)
+    if prev_mask is not None:
+        mask = torch.logical_or(mask, prev_mask)
+
+    res = None
+    rounds = 0
+    cap = 0
+    deferred = 0
+    for rounds in range(1, max_kkt_rounds + 1):
+        count = int(engine.host_read(mask.sum()))
+        if count == 0:
+            # empty working set: beta stays 0
+            beta_new, m_new = beta, m
+            res = empty_result(beta)
+        else:
+            cap = capacity_bucket(count, p_cap, tile=cap_tile)
+            res, beta_new, m_new = restricted_solve(mask, cap, beta)
+            if res.status:
+                # a guardrail trip: certification cannot proceed on a
+                # degraded iterate; return the input state (the last
+                # certified point) for the driver's degradation ladder
+                info = {"active": count, "capacity": cap, "kkt_rounds": rounds,
+                        "deferred": deferred, "status": int(res.status)}
+                return res, beta, m, info, mask
+        g_abs = grad_abs(m_new)
+        viol = kkt_violations(g_abs, lam, mask, tol=kkt_tol)
+        n_viol = int(engine.host_read(viol.sum()))
+        if n_viol == 0:
+            break
+        if violation_budget is not None and rounds < max_kkt_rounds - 1:
+            budget = min(violation_budget, 2 * max(count, 1))
+            admitted = budgeted_admission(viol, g_abs, budget)
+            # ties at the cutoff may admit more than the budget
+            deferred += n_viol - int(engine.host_read(admitted.sum()))
+        else:
+            admitted = viol                       # safety valve: admit all
+        mask = torch.logical_or(mask, admitted)   # violators re-enter
+        beta, m = beta_new, m_new                 # keep this round's progress
+    else:
+        raise RuntimeError(
+            f"KKT check failed to certify within {max_kkt_rounds} rounds "
+            f"at lambda={lam} (last violation count > 0)")
+
+    info = {"active": int(engine.host_read(mask.sum())), "capacity": cap,
+            "kkt_rounds": rounds, "deferred": deferred}
+    return res, beta_new, m_new, info, mask
 
 
 def _dense_state(X, y, beta, m, lam, opts: DGLMNETOptions):
@@ -142,8 +247,26 @@ def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False
     if design.layout == "dense":
         return _fit_mesh_dense(inner.X, y, lam, design.mesh, strat.opts,
                                beta0, verbose)
-    return _fit_mesh_slab(inner.row_idx, inner.values, y, lam, design.mesh,
-                          strat, beta0, verbose)
+    if design.layout == "slab":
+        return _fit_mesh_slab(inner.row_idx, inner.values, y, lam, design.mesh,
+                              strat, beta0, verbose)
+    # bucketed on a mesh: flatten through the bucket gather at the largest
+    # K class, solve the flat slab problem, scatter back to the original
+    # order (one work axis throughout: strat.opts.tile)
+    tile = strat.opts.tile
+    st = design._mesh_state(tile)
+    p = design.shape[1]
+    beta_full = (torch.zeros(p, dtype=torch.float32, device=y.device) if beta0 is None
+                 else beta0.to(torch.float32))
+    beta_work = take_fill(beta_full, st.feat_map, 0.0)
+    mask_work = torch.ones(st.p_work, dtype=torch.bool, device=y.device)
+    sub, beta_sub, idx = design._gather_work(beta_work, mask_work, st.p_work, st.k_max,
+                                             tile=tile)
+    res = _fit_mesh_slab(sub.inner.row_idx, sub.inner.values, y, lam, design.mesh,
+                         strat, beta_sub, verbose)
+    res.beta = design._work_to_original(scatter_features(res.beta, idx, st.p_work),
+                                        tile=tile)
+    return res
 
 
 @dataclass
@@ -181,6 +304,14 @@ class LogisticL1:
                 raise ValueError(
                     f"the mesh lives on {design.mesh.device}, the estimator "
                     f"on {dev}: build the mesh with device={self.device!r}")
+            if (design.layout != "dense" and design._states
+                    and self.opts.tile not in design._states):
+                warnings.warn(
+                    f"ShardedDesign is resident at tile={sorted(design._states)} but "
+                    f"the estimator uses tile={self.opts.tile}; this puts a second "
+                    f"copy of the padded slabs on the device -- build the design "
+                    f"with tile={self.opts.tile} to share one residency",
+                    stacklevel=3)
         return design.to(dev)
 
     # -- one solve ---------------------------------------------------------
@@ -251,3 +382,229 @@ class LogisticL1:
                 )
             setattr(self, name, value)
         return self
+
+    # -- the regularization path -------------------------------------------
+
+    def path(
+        self,
+        data,
+        y,
+        *,
+        path_len: int = 20,
+        eval_fn: Optional[Callable[[torch.Tensor], dict]] = None,
+        extra_lams: Optional[List[float]] = None,
+        verbose: bool = False,
+        screen: bool = True,
+        kkt_tol: float = 1e-3,
+        max_kkt_rounds: int = 8,
+        carry_working_set: bool = True,
+        violation_budget: Optional[int] = 512,
+        densify: Optional[bool] = None,
+        checkpoint_every: Optional[int] = None,
+        resume_from: Optional[str] = None,
+    ) -> PathResult:
+        """Warm-started screened regularization path (paper Algorithm 5):
+        lambda = lambda_max * 2^{-i}, i = 1..path_len, each point solved
+        restricted to the strong-rule/KKT-certified working set
+        (capacity-bucketed), warm-started from the previous point.
+
+        Returns a :class:`PathResult`: the coefficients stacked (L, p) and
+        per-lambda telemetry (``screen``: active, capacity, kkt_rounds,
+        deferred, and degraded/skipped where they apply). ``eval_fn(beta)``
+        computes per-lambda metrics (:func:`make_design_eval` scores
+        through a test design); ``screen=False`` runs the full-p
+        warm-started loop (the screening tests' oracle);
+        ``carry_working_set`` / ``violation_budget`` are the blitz-style
+        growth knobs (:func:`_screened_point`).
+
+        On a guardrail trip the driver degrades per lambda: re-warm-start
+        from the previous certified point without the carried working
+        set, then (``cycle_mode="blocked"``) the sequential cycle, then
+        skip and mark the point, holding the last certified state.
+        ``checkpoint_every``/``resume_from`` are not ported yet."""
+        if checkpoint_every is not None or resume_from is not None:
+            raise NotImplementedError(
+                "checkpoint_every= and resume_from= (resumable paths) are not "
+                "ported yet (ROADMAP queue 1 item 6)")
+        return self._path_impl(
+            data, y, path_len=path_len, eval_fn=eval_fn, extra_lams=extra_lams,
+            verbose=verbose, screen=screen, kkt_tol=kkt_tol,
+            max_kkt_rounds=max_kkt_rounds, carry_working_set=carry_working_set,
+            violation_budget=violation_budget, densify=densify)
+
+    def _path_impl(self, data, y, *, path_len, eval_fn, extra_lams, verbose, screen,
+                   kkt_tol, max_kkt_rounds, carry_working_set, violation_budget,
+                   densify) -> PathResult:
+        design = self._design(data, y)
+        y = self._tensor(y)
+        strat = resolve(design, self.opts, densify=densify)
+        opts = strat.opts
+        n = int(y.shape[0])
+        n_d, p = design.shape
+        if n_d != n:
+            raise ValueError(f"X rows {n_d} != len(y) {n}")
+
+        sharded = isinstance(design, ShardedDesign)
+        # the work-axis path only matters under screening (gradient passes
+        # and masked gathers); screen=False keeps beta in design order
+        slab_mesh = sharded and screen and design.layout in ("slab", "bucketed")
+        front_packed = getattr(design.inner if sharded else design, "front_packed", True)
+        to_output = None               # work-axis beta -> original order
+        m = torch.zeros(n, dtype=torch.float32, device=y.device)
+
+        if slab_mesh:
+            # driver state (beta, masks, g_abs) on the mesh-padded,
+            # bucket-permuted work axis; no order conversion until a point
+            # is emitted
+            st = design._mesh_state(opts.tile)
+            p_cap = st.p_work
+
+            def grad_abs(m_cur):
+                return design._screen_abs_work(y, m_cur, tile=opts.tile)
+
+            def make_restricted_solve(lam, strat_=strat):
+                def restricted_solve(mask_work, cap, beta_work):
+                    if front_packed:
+                        # the working set's slab-capacity class: a solve
+                        # pays only for the K its features carry
+                        k_need = int(engine.host_read(
+                            torch.where(mask_work, st.k_arr, 0).max()))
+                        k_cap = k_class(k_need, st.k_max)
+                    else:
+                        k_cap = st.k_max
+                    sub, beta_sub, idx = design._gather_work(
+                        beta_work, mask_work, cap, k_cap, tile=opts.tile)
+                    res = _solve(sub, y, lam, strat_, beta0=beta_sub)
+                    return res, scatter_features(res.beta, idx, st.p_work), res.m
+                return restricted_solve
+
+            def to_output(beta_work):
+                return design._work_to_original(beta_work, tile=opts.tile)
+
+            # at beta = 0 the NLL residual is exactly -y/2, so the screen at
+            # zero margins is lambda_max; the buckets' row bound rides the
+            # same read
+            lmax, max_row = engine.host_read(torch.stack(
+                [grad_abs(m).max().double(), st.max_row.double()]))
+            design._check_rows(st, int(max_row))
+        else:
+            p_cap = p
+
+            def grad_abs(m_cur):
+                return design.correlation(_nll_residual(m_cur, y)).abs()
+
+            def make_restricted_solve(lam, strat_=strat):
+                def restricted_solve(mask, cap, beta_cur):
+                    sub, beta_sub, idx = design.gather(beta_cur, mask, cap)
+                    res = _solve(sub, y, lam, strat_, beta0=beta_sub)
+                    beta_full = design.scatter(res.beta, idx)
+                    m_full = (res.m if getattr(res, "m", None) is not None
+                              else sub.margins(res.beta))
+                    return res, beta_full, m_full
+                return restricted_solve
+
+            lmax = engine.host_read(lambda_max_design(design, y))
+        lams = _lambda_grid(float(lmax), path_len, extra_lams)
+        beta = torch.zeros(p_cap, dtype=torch.float32, device=y.device)
+
+        def empty_result(beta_cur):
+            if strat.execution == "mesh":
+                return DistributedFitResult(beta=beta_cur, f=float("nan"), n_iters=0,
+                                            objective_history=[])
+            return FitResult(beta=beta_cur, f=float("nan"), n_iters=0,
+                             objective_history=[], alpha_history=[])
+
+        lam_prev = float(lmax)
+        carry_mask = None
+        points: List[PathPoint] = []
+
+        def solve_point(lam, prev_mask, strat_):
+            return _screened_point(
+                p_cap, lam, lam_prev, beta, m, grad_abs=grad_abs,
+                restricted_solve=make_restricted_solve(lam, strat_),
+                empty_result=empty_result, cap_tile=strat_.cap_tile,
+                kkt_tol=kkt_tol, max_kkt_rounds=max_kkt_rounds,
+                prev_mask=prev_mask, violation_budget=violation_budget)
+
+        for lam in lams:
+            if screen:
+                res, beta_new, m_new, info, mask = solve_point(lam, carry_mask, strat)
+                pt_status = int(res.status)
+                # the degradation ladder: a tripped solve never feeds the
+                # warm-start chain. (1) drop the carried working set and
+                # re-warm-start from the last certified point; (2) blocked
+                # cycles fall back to the sequential chain; (3) skip and mark,
+                # keeping the last certified state
+                if pt_status:
+                    res, beta_new, m_new, info, mask = solve_point(lam, None, strat)
+                    pt_status = int(res.status)
+                    info["degraded"] = "rewarm"
+                if pt_status and opts.cycle_mode == "blocked":
+                    seq_strat = resolve(design, replace(opts, cycle_mode="sequential"),
+                                        densify=densify)
+                    res, beta_new, m_new, info, mask = solve_point(lam, None, seq_strat)
+                    pt_status = int(res.status)
+                    info["degraded"] = "sequential"
+                if pt_status:
+                    beta_new, m_new, mask = beta, m, carry_mask
+                    info = {**info, "skipped": True, "degraded": "skipped"}
+                beta, m = beta_new, m_new
+                if carry_working_set and not pt_status:
+                    carry_mask = mask
+            else:
+                res = _solve(design, y, lam, strat, beta0=beta)
+                pt_status = int(res.status)
+                if pt_status:
+                    # the unscreened loop: mark the point, hold the chain
+                    info = {"skipped": True, "degraded": "skipped"}
+                else:
+                    beta = res.beta
+                    m = (res.m if getattr(res, "m", None) is not None
+                         else design.margins(beta))
+                    info = {}
+            lam_prev = lam
+            beta_out = to_output(beta) if to_output is not None else beta
+            # the point's one read: nnz, and f where the solve did not give it
+            nnz_dev = (beta_out.abs() > 0).sum().double()
+            if res.n_iters and not pt_status:
+                nnz, f = int(engine.host_read(nnz_dev)), float(res.f)
+            else:
+                nnz_h, f_h = engine.host_read(torch.stack(
+                    [nnz_dev, objective(m, y, beta, lam).double()]))
+                nnz, f = int(nnz_h), float(f_h)
+            metrics = eval_fn(beta_out) if eval_fn else {}
+            points.append(PathPoint(lam=lam, nnz=nnz, f=f,
+                                    n_iters=0 if pt_status else res.n_iters,
+                                    beta=beta_out, metrics=metrics, screen=info,
+                                    status=pt_status))
+            if verbose:
+                print(f"lambda={lam:10.4f} nnz={nnz:6d} f={f:12.4f} "
+                      f"iters={points[-1].n_iters:3d} {info} {metrics}")
+        self.beta_ = points[-1].beta if points else None
+        self.lam_ = lams[-1] if lams else None
+        return PathResult.from_points(points)
+
+
+# ---------------------------------------------------------------------------
+# streamed per-lambda evaluation
+# ---------------------------------------------------------------------------
+
+def make_design_eval(test_data, y_test, *, mesh=None, tile: int = 128,
+                     device=DEFAULT_DEVICE) -> Callable[[torch.Tensor], dict]:
+    """``eval_fn`` for :meth:`LogisticL1.path` that scores through a test
+    design on ``device`` (slab designs through ``kernels.slab_spmv``): only
+    the (n_test,) scores reach the host, in one ``engine.host_read`` per
+    point (a slab design on a mesh adds one entry read, its row bound, at
+    the first). Metrics are the paper's Figure-1 set (``train.metrics``)."""
+    from repro_torch.train.metrics import metrics_from_scores
+
+    dev = resolve_device(device)
+    design = as_design(test_data, n=int(len(y_test)), mesh=mesh, tile=tile).to(dev)
+    y_host = (y_test.detach().cpu().numpy() if torch.is_tensor(y_test)
+              else np.asarray(y_test))
+
+    def fn(beta):
+        scores = design.margins(torch.as_tensor(beta, dtype=torch.float32, device=dev))
+        return metrics_from_scores(np.asarray(engine.host_read(scores), np.float32), y_host)
+
+    return fn

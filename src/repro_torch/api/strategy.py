@@ -7,10 +7,12 @@ the one place (design layout, mesh, options) maps to an execution plan.
   densifies once and rides the dense solver, a slab design on a mesh
   gets the by-feature slab solver, whose per-solve densify decision is
   :meth:`Strategy.use_densify`;
-* ``cycle_mode="auto"`` resolves to a concrete mode here.
+* ``cycle_mode="auto"`` resolves to a concrete mode here;
+* ``cap_tile`` is the feature-capacity quantum of the screened path's
+  restricted solves: ``tile`` locally, ``M * tile`` on a (1, M) mesh.
 
-The screened path's capacity quantum (``cap_tile``) and slab residency
-(``device_budget_bytes``) are not ported yet.
+Streamed slab residency (``device_budget_bytes`` on a mesh) is not
+ported yet (ROADMAP queue 1 item 4) and raises.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ class Strategy:
     execution: str                  # "local" | "mesh"
     solver: str                     # "dense" | "slab"
     opts: DGLMNETOptions            # cycle_mode resolved to a concrete mode
+    cap_tile: int                   # feature-capacity quantum (screened path)
     densify: Optional[bool] = None  # slab solver: force/forbid densify-once
 
     def use_densify(self, n_loc: int, k: int) -> bool:
@@ -65,13 +68,15 @@ def resolve(design, opts: DGLMNETOptions, *,
     """Pick the execution plan for ``design`` under ``opts`` (see the
     module docstring)."""
     sharded = isinstance(design, ShardedDesign)
-    if design.layout not in ("dense", "slab"):
-        raise ValueError(f"layout {design.layout!r} is not ported yet")
+    if design.layout not in ("dense", "slab", "bucketed"):
+        raise ValueError(f"unknown layout {design.layout!r}")
     if sharded and opts.device_budget_bytes is not None:
         raise ValueError(
             "device_budget_bytes (streamed slab residency) is not ported yet "
-            "(ROADMAP queue 1, item 10)")
+            "(ROADMAP queue 1, item 4)")
     execution = "mesh" if sharded else "local"
-    solver = "slab" if (sharded and design.layout == "slab") else "dense"
-    return Strategy(execution=execution, solver=solver,
-                    opts=_resolve_cycle(opts), densify=densify)
+    solver = "slab" if (sharded and design.layout in ("slab", "bucketed")) else "dense"
+    opts = _resolve_cycle(opts)
+    cap_tile = (design.mdim if sharded else 1) * opts.tile
+    return Strategy(execution=execution, solver=solver, opts=opts,
+                    cap_tile=cap_tile, densify=densify)

@@ -38,10 +38,10 @@ from repro_torch.core.subproblem import layout_coefs, make_tile_solver, unlayout
 from repro_torch.kernels.slab_spmv import SlabOrder, slab_order
 
 
-def check_slab_shapes(row_idx, values, mesh, n: int) -> int:
-    """Validate (p, DP, K) by-feature slabs against the mesh and example
-    count. Returns n_loc (local examples per data shard). Reads the
-    slab's largest row index once (counted by ``engine.host_read``)."""
+def slab_dims(row_idx, values, mesh, n: int) -> int:
+    """The shape half of :func:`check_slab_shapes`, with no host read:
+    (p, DP, K) slabs against the mesh and the example count. Returns
+    n_loc."""
     if row_idx.shape != values.shape or row_idx.dim() != 3:
         raise ValueError(
             f"slab shapes must match and be (p, DP, K); got row_idx "
@@ -53,16 +53,28 @@ def check_slab_shapes(row_idx, values, mesh, n: int) -> int:
             f"data extent {ddim}")
     if n % ddim:
         raise ValueError(f"data extent {ddim} must divide n={n} (trim or pad upstream)")
-    n_loc = n // ddim
-    # local row indices beyond the sentinel would be silently dropped by
-    # the products downstream -- catch a slab/y example-count mismatch
-    # here instead of converging to a wrong solution
-    max_row = int(engine.host_read(row_idx.max())) if row_idx.numel() else 0
+    return n // ddim
+
+
+def check_rows(max_row: int, n_loc: int, n: int, ddim: int) -> None:
+    """Raise if a slab's largest local row index passes the sentinel."""
     if max_row > n_loc:
         raise ValueError(
             f"slab row index {max_row} exceeds the local example count "
             f"{n_loc} implied by n={n} on data extent {ddim} -- were the "
             f"slabs built for a different n?")
+
+
+def check_slab_shapes(row_idx, values, mesh, n: int) -> int:
+    """Validate (p, DP, K) by-feature slabs against the mesh and example
+    count. Returns n_loc (local examples per data shard). Reads the
+    slab's largest row index once (counted by ``engine.host_read``)."""
+    n_loc = slab_dims(row_idx, values, mesh, n)
+    # local row indices beyond the sentinel would be silently dropped by
+    # the products downstream -- catch a slab/y example-count mismatch
+    # here instead of converging to a wrong solution
+    max_row = int(engine.host_read(row_idx.max())) if row_idx.numel() else 0
+    check_rows(max_row, n_loc, n, mesh.shape["data"])
     return n_loc
 
 

@@ -12,17 +12,21 @@ Machine m stores X_m = {L_j | j in S_m}, L_j = {(i, x_ij) | x_ij != 0}:
   lines ``feature_id (example_id:value) (example_id:value) ...``;
 * :func:`partition_features` -- contiguous feature blocks S_1..S_M;
 * :func:`to_slabs` -- re-key for ``dp`` example shards: (p, dp, K')
-  slabs with local row indices (sentinel n_loc), front-packed.
+  slabs with local row indices (sentinel n_loc), front-packed;
+* :class:`SlabBuckets` / :func:`to_slab_buckets` -- the nnz-bucketed
+  form, features grouped into power-of-two K classes (:func:`k_class`);
+* :func:`gather_features`, :func:`take_buckets_iter`,
+  :func:`gather_features_buckets` and :func:`scatter_features` -- the
+  screened path's working-set gather into slab form and its inverse,
+  on the slabs' device with no host read.
 
 The layout transforms run on the host (numpy) and return CPU tensors;
-an entry point moves them to its device once. The bucketed layout, the
-active-set gathers and the scatter come with the path and residency
-slices.
+an entry point moves them to its device once.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TextIO, Tuple
+from typing import Optional, TextIO, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +45,13 @@ class ByFeature:
     @property
     def nnz(self) -> int:
         return int((self.row_idx < self.n).sum())
+
+    def gather(self, beta, mask, cap: int):
+        """Screened working set as a restricted ByFeature (see
+        :func:`gather_features`). Returns ``(bf_sub, beta_sub, idx)``."""
+        r, v, b, idx = gather_features(self.row_idx, self.values, beta, mask, cap,
+                                       sentinel=self.n)
+        return ByFeature(r, v, self.n), b, idx
 
 
 def _host(t) -> np.ndarray:
@@ -123,6 +134,41 @@ def partition_features(p: int, num_machines: int) -> Tuple[np.ndarray, ...]:
 # slabs: the (p, DP, K) layout the by-feature solve consumes
 # ---------------------------------------------------------------------------
 
+@dataclass
+class SlabBuckets:
+    """nnz-bucketed slabs: ``buckets[i] = (row_idx (p_i, DP, K_i), values,
+    feat_idx (p_i,) numpy int64)`` with per-bucket K_i on a power-of-two
+    ladder, so storage is about O(nnz) instead of O(p K_max). ``feat_idx``
+    maps each bucket row to its original feature; the concatenated
+    bucket order is the permuted feature axis the screened path works in.
+
+    Invariant: every slab's K axis is front-packed (live slots first), as
+    :func:`to_slab_buckets` makes it: consumers trim K positionally.
+    """
+
+    buckets: tuple                 # of (row_idx, values, feat_idx)
+    n_loc: int
+    p: int                         # original feature count
+
+    @property
+    def k_classes(self):
+        return tuple(int(b[0].shape[-1]) for b in self.buckets)
+
+    @property
+    def feat_order(self) -> np.ndarray:
+        """Original feature ids in concatenated bucket order."""
+        return np.concatenate([np.asarray(b[2]) for b in self.buckets])
+
+    @property
+    def bucket_nbytes(self) -> Tuple[int, ...]:
+        """Per-bucket slab payload bytes (row_idx + values)."""
+        return tuple(r.numel() * r.element_size() + v.numel() * v.element_size()
+                     for r, v, _ in self.buckets)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(self.bucket_nbytes)
+
 def _regroup_slabs(bf: ByFeature, dp: int):
     """Global rows -> per-shard local rows + per-(feature, shard) nnz
     counts, vectorized: flatten the live entries, key them by (feature,
@@ -166,3 +212,134 @@ def to_slabs(bf: ByFeature, dp: int):
     row_idx[jj, ss, rank] = loc_rows
     values[jj, ss, rank] = loc_vals
     return torch.from_numpy(row_idx), torch.from_numpy(values), n_loc
+
+
+def k_class(k_need: int, k_max: int, *, k_min: int = 8) -> int:
+    """Round a slab capacity up to its power-of-two class (min ``k_min``,
+    capped at ``k_max``): O(log K_max) slab shapes; the feature-axis twin
+    is ``core.screening.capacity_bucket``."""
+    cap = max(k_min, 1)
+    while cap < min(k_need, k_max):
+        cap *= 2
+    return min(cap, max(k_max, 1))
+
+
+def to_slab_buckets(bf: ByFeature, dp: int, *, k_min: int = 8) -> SlabBuckets:
+    """:func:`to_slabs` with nnz-bucketed capacities: features grouped by
+    their per-shard max nnz into power-of-two classes, each class its own
+    (p_i, dp, K_i) slab pair padded only to K_i."""
+    if bf.n % dp:
+        raise ValueError(
+            f"data shard count {dp} must divide n={bf.n} (trim or pad upstream)"
+        )
+    jj, ss, rank, loc_rows, loc_vals, counts, n_loc = _regroup_slabs(bf, dp)
+    p = bf.p
+    k_feat = counts.max(axis=1) if p else np.zeros(0, np.int64)
+    k_max = max(1, int(k_feat.max()) if p else 1)
+    classes = sorted({k_class(int(k), k_max, k_min=k_min) for k in k_feat})
+    if not classes:
+        classes = [k_class(1, 1, k_min=k_min)]
+    # every feature in the smallest class that holds it
+    feat_class = np.searchsorted(np.asarray(classes), k_feat)
+    buckets = []
+    pos_of_feat = np.zeros(p, np.int64)
+    for ci, kc in enumerate(classes):
+        feats = np.flatnonzero(feat_class == ci)
+        if feats.size == 0:
+            continue
+        pos_of_feat[feats] = np.arange(feats.size)
+        row_idx = np.full((feats.size, dp, kc), n_loc, np.int32)
+        values = np.zeros((feats.size, dp, kc), np.float32)
+        sel = feat_class[jj] == ci
+        row_idx[pos_of_feat[jj[sel]], ss[sel], rank[sel]] = loc_rows[sel]
+        values[pos_of_feat[jj[sel]], ss[sel], rank[sel]] = loc_vals[sel]
+        buckets.append((torch.from_numpy(row_idx), torch.from_numpy(values),
+                        feats.astype(np.int64)))
+    return SlabBuckets(buckets=tuple(buckets), n_loc=n_loc, p=p)
+
+
+# ---------------------------------------------------------------------------
+# the screened path's working-set gathers (on the slabs' device)
+# ---------------------------------------------------------------------------
+
+def _trim_k(t, k_cap: int, fill):
+    """Slice (or pad with ``fill``) the trailing slab-capacity axis to
+    ``k_cap``; exact on front-packed slabs (live slots first)."""
+    k = t.shape[-1]
+    if k_cap >= k:
+        if k_cap == k:
+            return t
+        return torch.nn.functional.pad(t, (0, k_cap - k), value=fill)
+    return t[..., :k_cap]
+
+
+def gather_features(row_idx, values, beta, mask, cap: int, *, sentinel: int,
+                    k_cap: Optional[int] = None):
+    """Feature-axis gather of the working set into slab form.
+
+    ``row_idx``/``values`` are feature-major, (p, K) or (p, DP, K).
+    Returns ``(row_idx_sub, values_sub, beta_sub, idx)``, ``idx`` (cap,)
+    with sentinel p at the padding, whose slabs are all-sentinel (their
+    coordinates stay at zero). ``k_cap`` also trims K to the working
+    set's class (front-packed slabs only)."""
+    from repro_torch.core.screening import pack_indices, take_fill
+
+    idx = pack_indices(mask, cap)
+    rows_sub = take_fill(row_idx, idx, sentinel)
+    vals_sub = take_fill(values, idx, 0.0)
+    beta_sub = take_fill(beta, idx, 0.0)
+    if k_cap is not None:
+        rows_sub = _trim_k(rows_sub, k_cap, sentinel)
+        vals_sub = _trim_k(vals_sub, k_cap, 0.0)
+    return rows_sub, vals_sub, beta_sub, idx
+
+
+def take_buckets_iter(buckets, n_loc: int, idx, k_cap: int):
+    """:func:`take_features_buckets` over any iterable of ``(row_idx,
+    values, ...)`` buckets: each bucket taken at the indices that fall in
+    its range of the concatenated axis (the rest read as all-sentinel),
+    trimmed or padded to ``k_cap``, and the pieces combined with
+    ``where``. Returns the (len(idx), DP, k_cap) slab pair."""
+    from repro_torch.core.screening import take_fill
+
+    rows_sub = vals_sub = None
+    off = 0
+    for bucket in buckets:
+        r_b, v_b = bucket[0], bucket[1]
+        p_b = r_b.shape[0]
+        ok = torch.logical_and(idx >= off, idx < off + p_b)
+        li = torch.where(ok, idx - off, p_b)
+        rb = _trim_k(take_fill(r_b, li, n_loc), k_cap, n_loc)
+        vb = _trim_k(take_fill(v_b, li, 0.0), k_cap, 0.0)
+        if rows_sub is None:
+            rows_sub, vals_sub = rb, vb
+        else:
+            sel = ok[:, None, None]
+            rows_sub = torch.where(sel, rb, rows_sub)
+            vals_sub = torch.where(sel, vb, vals_sub)
+        off += p_b
+    return rows_sub, vals_sub
+
+
+def take_features_buckets(slabs: SlabBuckets, idx, k_cap: int):
+    """Explicit-index feature take over a bucketed layout: ``idx`` holds
+    concatenated-bucket positions (sentinel >= the extent for padding)."""
+    return take_buckets_iter(slabs.buckets, slabs.n_loc, idx, k_cap)
+
+
+def gather_features_buckets(slabs: SlabBuckets, beta, mask, cap: int, k_cap: int):
+    """:func:`gather_features` over a bucketed layout: ``mask``/``beta``
+    on the concatenated (bucket-permuted) feature axis."""
+    from repro_torch.core.screening import pack_indices, take_fill
+
+    idx = pack_indices(mask, cap)
+    rows_sub, vals_sub = take_features_buckets(slabs, idx, k_cap)
+    return rows_sub, vals_sub, take_fill(beta, idx, 0.0), idx
+
+
+def scatter_features(beta_sub, idx, p: int):
+    """Inverse of :func:`gather_features`: restricted solution -> (p,)
+    beta; the coefficient scatter is the dense column scatter."""
+    from repro_torch.core.screening import scatter_columns
+
+    return scatter_columns(beta_sub, idx, p)

@@ -406,7 +406,11 @@ def test_as_design_forms():
     assert sharded.layout == "slab" and sharded.mdim == 2 and sharded.tile == 4
     with pytest.raises(ValueError, match="need n="):
         as_design((rows, vals))
-    with pytest.raises(TypeError, match="not ported yet"):
+    buckets = as_design(tbf.to_slab_buckets(bf, 1))
+    assert buckets.layout == "bucketed" and buckets.shape == (64, 12)
+    np.testing.assert_array_equal(buckets.densify().numpy(), X)
+    # the reference's own SlabBuckets is not a port type
+    with pytest.raises(TypeError, match="cannot build a design"):
         as_design(jbf.to_slab_buckets(jbf.to_by_feature(X), 1))
 
 

@@ -300,7 +300,7 @@ def test_mesh_entry_points_refuse_what_they_cannot_run(problem):
     with pytest.raises(ValueError, match="different mesh"):
         LogisticL1(DGLMNETOptions(**OPTS), mesh=cpu_mesh, device="cpu").fit(
             ShardedDesign(design, make_dev_mesh(1, 2, device="cpu")), problem["y"], 0.1)
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="item 4"):
         LogisticL1(DGLMNETOptions(device_budget_bytes=1, **OPTS), mesh=cpu_mesh,
                    device="cpu").fit(design, problem["y"], 0.1)
     bad = SlabDesign(design.row_idx, design.values, len(problem["y"]) - 200)
