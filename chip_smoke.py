@@ -51,7 +51,13 @@ of which fails the run with a non-zero exit:
    values refused before any launch; and at the screened path's K classes
    (8, 16, 32, 64 and the cell's 94, slots trimmed as a working-set gather
    trims them), laid out by ``layout_slabs`` into one tile per block, as
-   the smallest restricted solve lays them out;
+   the smallest restricted solve lays them out; ``slab_spmv``'s path mode
+   (``ops.slab_path_spmv``: each example row reads its own row of a
+   stacked (L, M * T) path) against its plain version at a local serve
+   store's shape (1 x 2^20 x 8) and a (1, 16) mesh store's (16 x 65,536 x
+   8), on the adversarial and hub slabs, with random ``lam_idx`` over
+   L = 8, at a uniform ``lam_idx == l`` bit-equal to ``slab_spmv`` with
+   ``betas[l]`` for every l, two launches bit-equal;
 7. sparse path -- ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).fit(
    SlabDesign(...), y, lam)`` with lam = lambda_max / 16 in both cycle
    modes: the strategy picks the slab-native solver, status OK, monotone
@@ -79,6 +85,36 @@ of which fails the run with a non-zero exit:
    deferred, nnz, f, iterations, wall, test AUPRC and accuracy; then the
    path's wall, its wall down to lambda_max/16, one screen pass and the
    peak memory;
+8a. streamed path -- the cell split into 16 feature-range buckets of
+   65,536 features (a ``SlabBuckets``), ``LogisticL1.path`` on a (1, 16)
+   mesh, sequential, ``path_len`` 4 (lambda_max/2 ... /16), with the
+   path phase's options and eval, twice from the same buckets: resident
+   on the card, and from pinned host buckets under ``device_budget_bytes
+   = slab_nbytes(tile) // 4`` (4 of the 16 buckets; the floor is 2).
+   Gates: ``Strategy.residency`` "streamed"; betas, f, nnz and every
+   screen count bit-equal to the resident run; evictions > 0, misses >
+   buckets, bytes moved > the slab bytes, resident bytes within the
+   budget; ``logistic_stats``, ``slab_gram``, ``slab_spmv`` and
+   ``gram_cd`` launched at least once per restricted-solve iteration;
+   the same host reads as the resident run; the first two streamed
+   points under sync debug mode synchronise only through the engine's
+   door. Prints both runs' walls, one screen pass each (CUDA events),
+   the bytes moved per pass and their rate, and peak memory;
+8b. serve -- phase 8's sequential path (8 points, p = 2^20) through
+   ``PathResult.save`` / ``load`` (betas bit-equal) and
+   ``PathStore.from_checkpoint`` into a local store and a (1, 16) mesh
+   store (tile 128); traffic from ``launch/serve_glm.make_traffic`` (1 ...
+   376 tokens per request, tokens from [0, 4p), lambdas uniform over the
+   8 points, ``max_batch`` 256): one warm batch, then 20 drain -> score
+   rounds per store. Gates: on the warm batch, served scores bit-equal
+   to ``decision_function`` at all 8 lambdas (``serve_glm.smoke_check``);
+   one ``slab_spmv`` path-mode launch and one counted host read per
+   batch, nothing else synchronising under sync debug mode; a hot swap
+   to a 2-point sub-path gives version v -> v+1 without dropping the
+   batch; a version with one NaN coefficient is quarantined and the
+   batch rescored on the previous one. Prints scores/s, one batch's time
+   by stage (host encode and pack, the copy, ``slab_order``, the kernel),
+   the checkpoint's save and load wall and peak memory;
 9. sparse agreement -- an 8192 x 4096 slab fit on the card against the
    same fit on the CPU, both slab-native, and one ``densify=True`` fit on
    both: relative objective gaps < 1e-4, and after a fixed 8 iterations
@@ -113,7 +149,9 @@ of which fails the run with a non-zero exit:
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
    ``slab_spmv`` also without its fused dbeta update and at the margins'
-   shape (16 blocks of 65,536 features), beside its byte bound;
+   shape (16 blocks of 65,536 features), beside its byte bound, and its
+   path mode at both serve shapes (no single PyTorch call gathers a
+   per-row coefficient, so its library column is null);
 14. profile -- device time by kernel (torch.profiler) for one dense fit
    per cycle mode, a 3-iteration sparse fit per cycle mode (with device
    launches per tile step), the path's first three points per cycle
@@ -137,6 +175,7 @@ line.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -146,6 +185,8 @@ import warnings
 from collections import Counter
 from dataclasses import replace
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
@@ -848,7 +889,93 @@ def phase_sparse_kernels(torch, gen, cell):
         del lay1, R1, V1, o1, s1, dv1
     inputs = dict(R=R, V=V, w=w, r=r, d=d, order=order, n=n, margins=(Rm, Vm, beta))
     del lay
+    errs["slab_path_spmv"], inputs["serve"] = path_spmv_checks(torch, gen, ra, vla, na)
     return errs, inputs
+
+
+#: the serve phase's batch: max_batch requests of 1 ... SERVE_TOKENS tokens
+SERVE_BATCH = 256
+SERVE_TOKENS = 376
+SERVE_K = 8                             # the request slab's K class (k_capacity's floor)
+SERVE_PATH_LEN = 8
+
+
+def serve_slab(torch, gen, B: int, T: int, K: int, n_loc: int, live: float):
+    """A request slab (B, T, K) as ``serve.pack_requests`` makes one:
+    each slot live with probability ``live`` at a uniform request row,
+    front-packed and row-sorted per feature (sentinel n_loc)."""
+    rows = torch.randint(0, n_loc, (B, T, K), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    keep = torch.rand(B, T, K, generator=gen, device="cuda") < live
+    rows = torch.sort(torch.where(keep, rows, n_loc), dim=-1).values
+    vals = torch.where(rows < n_loc, torch.randn(B, T, K, generator=gen, device="cuda"), 0.0)
+    return rows, vals
+
+
+def path_spmv_checks(torch, gen, ra, vla, na):
+    """``slab_spmv``'s path mode (``ops.slab_path_spmv``) against its plain
+    version at the serve phase's shapes, a local store's (1, 2^20, 8) and a
+    (1, 16) mesh store's (16, 65,536, 8), and on the adversarial and hub
+    slabs, with random ``lam_idx`` over L = 8; at a uniform ``lam_idx ==
+    l`` bit-equal to ``slab_spmv`` with ``betas[l]`` for every l; two
+    launches bit-equal. Returns the largest error and the two serve
+    shapes' inputs for the times phase."""
+    from repro_torch.kernels import ref, slab_spmv
+    from repro_torch.kernels.slab_spmv import slab_order
+
+    L, err = SERVE_PATH_LEN, 0.0
+    # about SERVE_BATCH * SERVE_TOKENS / 2 live slots, as a served batch
+    live = SERVE_BATCH * (SERVE_TOKENS + 1) / 2 / (WEBSPAM_P * SERVE_K)
+    cases = []
+    for B, T in ((1, WEBSPAM_P), (SPARSE_M, WEBSPAM_P // SPARSE_M)):
+        rows, vals = serve_slab(torch, gen, B, T, SERVE_K, SERVE_BATCH, live)
+        cases.append((f"serve shape {B} x {T} x {SERVE_K}", rows, vals, SERVE_BATCH))
+    cases.append(("adversarial (duplicates, sentinels with values, empty, unsorted)",
+                  ra, vla, na))
+    rh = torch.sort(torch.randint(0, na, (4, 128, 94), generator=gen, device="cuda",
+                                  dtype=torch.int32), dim=-1).values
+    rh[..., :9] = 17
+    cases.append(("hub row across warps and blocks", rh,
+                  torch.randn(4, 128, 94, generator=gen, device="cuda"), na))
+    inputs = []
+    for label, rows, vals, n_loc in cases:
+        B, T, K = rows.shape
+        betas = torch.randn(L, B, T, generator=gen, device="cuda")
+        lam_idx = torch.randint(0, L, (n_loc,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        order = slab_order(rows, vals)
+        zeros = lambda: torch.zeros(B, n_loc, device="cuda")  # noqa: E731
+        got = slab_spmv.slab_path_spmv_kernel(order, vals, lam_idx, betas, zeros(),
+                                              n_loc=n_loc)
+        again = slab_spmv.slab_path_spmv_kernel(order, vals, lam_idx, betas, zeros(),
+                                                n_loc=n_loc)
+        plain = ref.slab_path_spmv_scatter(rows, vals, lam_idx, betas, n_loc)
+        torch.cuda.synchronize()
+        e = max_err(got, plain)
+        ok = torch.allclose(got, plain, rtol=TOL, atol=TOL)
+        same = torch.equal(got, again)
+        uniform = []
+        for l in range(L):
+            u = slab_spmv.slab_path_spmv_kernel(
+                order, vals, torch.full((n_loc,), l, dtype=torch.int32, device="cuda"),
+                betas, zeros(), n_loc=n_loc)
+            m = slab_spmv.slab_spmv_kernel(order, vals, betas[l], zeros(), n_loc=n_loc,
+                                           sign=1.0)
+            uniform.append(torch.equal(u, m))
+        torch.cuda.synchronize()
+        print(f"[sparse-kernels] slab_spmv path mode {label}, L={L}, random lam_idx: max abs "
+              f"err {e:.3g}, two launches {'bit-equal' if same else 'DIFFERENT'}; uniform "
+              f"lam_idx bit-equal to slab_spmv with betas[l] for l = 0..{L - 1}: {uniform} -> "
+              f"{'ok' if ok and same and all(uniform) else 'MISMATCH'}")
+        check(ok, f"slab_spmv path mode {label} disagrees with its plain version")
+        check(same, f"slab_spmv path mode {label}: two launches differ")
+        check(all(uniform), f"slab_spmv path mode {label}: a uniform lambda is not bit-equal "
+              f"to slab_spmv")
+        err = max(err, e)
+        if label.startswith("serve shape"):
+            inputs.append(dict(rows=rows, vals=vals, order=order, lam_idx=lam_idx,
+                               betas=betas, n_loc=n_loc))
+    return err, inputs
 
 
 def phase_sparse_path(torch, cell, card):
@@ -1209,7 +1336,7 @@ def phase_path(torch, cell, card, direct):
         print(f"[path] {mode}: the direct fit at lambda_max/16 (no screen): {d_bad} features "
               f"with beta_j = 0 over lam (1 + {KKT_TOL}) + 1e-7, max |g_j| / lam {d_ratio:.6f}")
         walls[mode] = dict(wall_ms=wall * 1e3, to16_ms=to16, peak=peak, syncs=syncs,
-                           solves=len(solves), iters=iters, screen_ms=screen_ms)
+                           solves=len(solves), iters=iters, screen_ms=screen_ms, result=res)
     return launches, walls
 
 
@@ -1289,6 +1416,314 @@ def phase_path_agreement(torch, n: int = 8192, p: int = 4096, n_dense: int = 10_
             check(dense.all_ok, f"{label}: a densify-once cpu point tripped")
             hold(f"{label}, cpu only", cpu, dense, "cpu slab-native / cpu densify-once",
                  design.shape[0], betas=False)
+
+
+# ---------------------------------------------------------------------------
+# the streamed path: slab buckets through a device budget
+# ---------------------------------------------------------------------------
+
+#: feature-range buckets of the streamed path phase, and its grid points
+STREAM_BUCKETS = 16
+STREAM_PATH_LEN = 4
+
+
+def feature_range_buckets(torch, rows, vals, parts: int, host: bool):
+    """The cell's (p, 1, K) slabs split into ``parts`` equal feature
+    ranges, each with its feature ids: a ``SlabBuckets`` (the cell's
+    uniform density gives ``to_slab_buckets`` about two K classes, whose
+    adjacent pair is nearly all of it, so it could not stream). With
+    ``host``, each bucket is a pinned host copy."""
+    width = rows.shape[0] // parts
+    buckets = []
+    for i in range(parts):
+        r, v = rows[i * width:(i + 1) * width], vals[i * width:(i + 1) * width]
+        fid = torch.arange(i * width, (i + 1) * width, device=r.device)
+        if host:
+            r, v, fid = r.cpu().pin_memory(), v.cpu().pin_memory(), fid.cpu()
+        buckets.append((r, v, fid))
+    return buckets
+
+
+def phase_streamed_path(torch, cell, card):
+    """``LogisticL1.path`` on the cell split into 16 feature-range buckets
+    on a (1, 16) mesh, sequential, ``path_len`` 4, twice from the same
+    buckets: resident on the card, and from pinned host buckets under
+    ``device_budget_bytes = slab_nbytes(tile) // 4`` (4 of the 16 buckets,
+    the floor is 2). The streamed run must equal the resident one bit for
+    bit, with evictions and re-streams counted and the budget kept."""
+    from repro_torch.api import LogisticL1, SlabDesign, as_design, make_design_eval, resolve
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.data.byfeature import SlabBuckets
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    (rows, vals, y), (rt, vt, yt) = cell
+    n, p = y.shape[0], rows.shape[0]
+    mesh = make_dev_mesh(1, SPARSE_M)
+    opts = DGLMNETOptions(cycle_mode="sequential", **SPARSE_OPTS)
+    tile = opts.tile
+    dev_b = SlabBuckets(tuple(feature_range_buckets(torch, rows, vals, STREAM_BUCKETS, False)),
+                        n_loc=n, p=p)
+    t0 = time.perf_counter()
+    host_b = SlabBuckets(tuple(feature_range_buckets(torch, rows, vals, STREAM_BUCKETS, True)),
+                         n_loc=n, p=p)
+    t_pin = time.perf_counter() - t0
+    sizing = as_design(dev_b, mesh=mesh, tile=tile)
+    total = sizing.slab_nbytes(tile)
+    budget = total // 4
+    print(f"[stream] {STREAM_BUCKETS} feature-range buckets of {p // STREAM_BUCKETS} "
+          f"features, {total} slab bytes ({sizing.slab_bucket_nbytes(tile)[0]} each); "
+          f"budget {budget} bytes; host copies pinned in {t_pin:.2f} s")
+
+    def designs():
+        resident = as_design(dev_b, mesh=mesh, tile=tile)
+        streamed = as_design(host_b, mesh=mesh, tile=tile, device_budget_bytes=budget)
+        return resident, streamed
+
+    est = LogisticL1(opts, mesh=mesh, device="cuda")
+    resident, streamed = designs()
+    check(resolve(resident, opts).residency == "resident"
+          and resolve(streamed, opts).residency == "streamed",
+          "the strategy did not resolve resident and streamed residency")
+    # the first two points of the streamed path under torch's sync debug mode
+    head, sites, stacks = under_sync_debug(torch, lambda: est.path(streamed, y, path_len=2))
+    print(f"[stream] streamed: first two points under sync debug mode: f {list(head.f)}; "
+          f"synchronising calls by call site: {dict(sites)}")
+    check_sync_sites(sites, stacks, "stream")
+    runs, launches = {}, {}
+    for label in ("resident", "streamed"):
+        resident, streamed = designs()
+        design = resident if label == "resident" else streamed
+        evals = TimedEval(make_design_eval(SlabDesign(rt, vt, yt.shape[0]), yt, mesh=mesh,
+                                           tile=tile))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        engine.host_syncs = 0
+        with PathLog() as log:
+            t0 = time.perf_counter()
+            res = est.path(design, y, path_len=STREAM_PATH_LEN, eval_fn=evals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        syncs = engine.host_syncs
+        peak = torch.cuda.max_memory_allocated()
+        (stats,) = design.residency_stats().values()
+        iters = sum(s["iters"] for s in log.rows)
+        ends = [t0] + [b for _, b in evals.marks]
+        pt_ms = [(a - ends[i]) * 1e3 for i, (a, _) in enumerate(evals.marks)]
+        # one screen pass alone, and the bytes it moves
+        m0 = torch.zeros(n, device="cuda")
+        before = dict(stats)
+        design._screen_abs_work(y, m0, tile=tile)
+        torch.cuda.synchronize()
+        (after,) = design.residency_stats().values()
+        pass_bytes = after["bytes_h2d"] - before["bytes_h2d"]
+        screen_ms = time_ms(torch, lambda: design._screen_abs_work(y, m0, tile=tile),
+                            torch.empty(1, device="cuda"), reps=5, warmup=1)
+        print(f"[stream] {label}: {len(res)} points, {len(log.rows)} restricted solves, "
+              f"{iters} solve iterations; path wall {wall * 1e3:.1f} ms, per point "
+              f"{[round(t, 1) for t in pt_ms]} ms; host syncs {syncs}; launches {counts}; on "
+              f"{card}")
+        print(f"[stream] {label}: residency {stats}")
+        print(f"[stream] {label}: one screen pass {screen_ms:.3f} ms (CUDA events, median of "
+              f"5), {pass_bytes} bytes host->device per pass"
+              + (f" ({pass_bytes / (screen_ms * 1e-3) / 1e9:.2f} GB/s over the pass)"
+                 if pass_bytes else "")
+              + f"; peak device memory {peak / 1e9:.3f} GB "
+              f"({(peak - held) / 1e9:.3f} GB above the {held / 1e9:.3f} GB held before), "
+              f"manager resident bytes {stats['resident_bytes']}; on {card}")
+        check(res.all_ok and all(s["status"] == 0 for s in log.rows),
+              f"stream {label}: a point or solve tripped: {list(res.statuses)}")
+        for name in ("logistic_stats", "slab_gram", "slab_spmv", "gram_cd"):
+            check(counts[name] >= iters, f"stream {label}: {name} launched {counts[name]} "
+                  f"times for {iters} restricted-solve iterations")
+            launches[name] = launches.get(name, 0) + counts[name]
+        runs[label] = dict(res=res, syncs=syncs, stats=stats, wall_ms=wall * 1e3,
+                           screen_ms=screen_ms, peak=peak, pass_bytes=pass_bytes)
+        del design, resident, streamed
+    a, b = runs["resident"]["res"], runs["streamed"]["res"]
+    same = (torch.equal(a.betas, b.betas) and np.array_equal(a.f, b.f)
+            and np.array_equal(a.nnz, b.nnz) and a.screen == b.screen
+            and np.array_equal(a.lambdas, b.lambdas))
+    st = runs["streamed"]["stats"]
+    print(f"[stream] streamed vs resident: betas, f, nnz, lambdas and every screen count "
+          f"{'bit-equal' if same else 'DIFFERENT'}; host reads {runs['streamed']['syncs']} / "
+          f"{runs['resident']['syncs']} -> {'ok' if same else 'MISMATCH'}")
+    check(same, "the streamed path differs from the resident one")
+    check(st["streamed"] and st["evictions"] > 0 and st["misses"] > st["n_buckets"]
+          and st["bytes_h2d"] > st["total_bytes"] and st["resident_bytes"] <= st["budget_bytes"],
+          f"the streamed residency did not stream within its budget: {st}")
+    check(runs["streamed"]["syncs"] == runs["resident"]["syncs"],
+          "the streamed path read the device more often than the resident one")
+    return launches, runs
+
+
+# ---------------------------------------------------------------------------
+# serving the certified path: checkpoint, store, batcher, scorer
+# ---------------------------------------------------------------------------
+
+SERVE_ROUNDS = 20
+
+
+def serve_stage_times(torch, scorer, batcher, reqs, lams, card):
+    """One batch's time by stage: host encode and pack (submit, drain),
+    the host-to-device copy (``put_slab`` from pinned staging),
+    ``slab_order`` and the kernel (CUDA events each), then the scorer's
+    whole call."""
+    from repro_torch.kernels import slab_spmv
+    from repro_torch.kernels.slab_spmv import slab_order
+    from repro_torch.serve.scoring import stage_batch
+
+    t0 = time.perf_counter()
+    for r, lam in zip(reqs, lams):
+        batcher.submit(r, lam)
+    batch, blams = batcher.drain()
+    t_pack = (time.perf_counter() - t0) * 1e3
+    snap = scorer.store.snapshot
+    lam_idx = np.zeros(batch.batch_cap, np.int32)
+    lam_idx[:batch.n_live] = snap.indices_of(blams)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev[0].record()
+    rows, vals, idx = stage_batch(batch, lam_idx, snap.betas.device)
+    ev[1].record()
+    M = 1 if scorer.store.mesh is None else scorer.store.mesh.shape["model"]
+    rows = rows[:, 0].reshape(M, batch.p_pad // M, -1)
+    vals = vals[:, 0].reshape(M, batch.p_pad // M, -1)
+    order = slab_order(rows, vals)
+    ev[2].record()
+    out = torch.zeros(M, batch.n_loc, device="cuda")
+    slab_spmv.slab_path_spmv_kernel(order, vals, idx,
+                                    snap.betas.reshape(snap.num_points, M, -1), out,
+                                    n_loc=batch.n_loc)
+    ev[3].record()
+    torch.cuda.synchronize()
+    t_dev = (time.perf_counter() - t1) * 1e3
+    slab_spmv.path_launches -= 1            # a measurement, not the serve path
+    t0 = time.perf_counter()
+    scorer.score(batch, blams)
+    t_score = (time.perf_counter() - t0) * 1e3
+    live = int((batch.row_idx < batch.n_loc).sum())
+    return dict(pack_ms=t_pack, copy_ms=ev[0].elapsed_time(ev[1]),
+                order_ms=ev[1].elapsed_time(ev[2]), kernel_ms=ev[2].elapsed_time(ev[3]),
+                device_wall_ms=t_dev, score_ms=t_score, live=live,
+                slab_bytes=batch.row_idx.nbytes + batch.values.nbytes)
+
+
+def phase_serve(torch, card, path):
+    """Serve phase 8's sequential path (8 points, p = 2^20) from a
+    checkpoint round trip, on a local store and on a (1, 16) mesh store,
+    with hashed-token traffic of 1 ... 376 tokens per request."""
+    import tempfile
+
+    from repro_torch.api import PathResult
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.serve_glm import make_traffic, serve_loop, smoke_check
+    from repro_torch.serve import PathScorer, PathStore, RequestBatcher, StoreSnapshot
+
+    L, p = path.betas.shape
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path.save(tmp)
+        t_save = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t0 = time.perf_counter()
+        loaded = PathResult.load(tmp)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        same = torch.equal(loaded.betas, path.betas) and loaded.screen == path.screen
+        print(f"[serve] checkpoint of the {L}-point path (p = {p}): {size} bytes, save "
+              f"{t_save * 1e3:.1f} ms, load to the card {t_load * 1e3:.1f} ms; betas "
+              f"{'bit-equal' if same else 'DIFFERENT'} -> {'ok' if same else 'MISMATCH'}")
+        check(same, "PathResult.load did not give the saved path back")
+        stores = {"local": PathStore.from_checkpoint(tmp),
+                  f"mesh (1, {SPARSE_M})": PathStore.from_checkpoint(
+                      tmp, mesh=make_dev_mesh(1, SPARSE_M), tile=SPARSE_OPTS["tile"])}
+    t0 = time.perf_counter()
+    count = SERVE_BATCH * (SERVE_ROUNDS + 1)
+    reqs, lams = make_traffic(np.random.default_rng(19), p, count, path.lambdas,
+                              tokens_per=SERVE_TOKENS)
+    n_tok = sum(len(r) for r in reqs)
+    print(f"[serve] traffic: {count} requests, {n_tok / count:.1f} tokens per request "
+          f"(1 ... {SERVE_TOKENS}), tokens from [0, {4 * p}), lambdas uniform over the "
+          f"{L} points; made in {time.perf_counter() - t0:.2f} s")
+    launches, out = 0, {}
+    for label, store in stores.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scorer = PathScorer(store)
+        batcher = RequestBatcher(p, max_batch=SERVE_BATCH, pad_p_to=store.pad_p_to)
+        for r, lam in zip(reqs[:SERVE_BATCH], lams[:SERVE_BATCH]):
+            batcher.submit(r, lam)
+        warm, warm_lams = batcher.drain()
+        scorer.score(warm, warm_lams)
+        smoke_check(store, scorer, warm, warm.n_live, path)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        engine.host_syncs = 0
+        (total, secs, versions), sites, stacks = under_sync_debug(
+            torch, lambda: serve_loop(scorer, batcher, reqs[SERVE_BATCH:], lams[SERVE_BATCH:],
+                                      steps=SERVE_ROUNDS))
+        counts = ops.launch_counts()
+        syncs = engine.host_syncs
+        print(f"[serve] {label}: {SERVE_ROUNDS} rounds, {total} scores in {secs:.3f} s -> "
+              f"{total / secs:,.1f} scores/s, {secs * 1e3 / SERVE_ROUNDS:.2f} ms per batch of "
+              f"{SERVE_BATCH}; versions {sorted(versions)}; launches {counts}; host reads "
+              f"{syncs}; synchronising calls by call site: {dict(sites)}; on {card}")
+        check_sync_sites(sites, stacks, f"serve {label}")
+        check(total == SERVE_ROUNDS * SERVE_BATCH, f"serve {label}: {total} scores served")
+        check(counts["slab_path_spmv"] == SERVE_ROUNDS and counts["slab_spmv"] == 0,
+              f"serve {label}: expected one slab_spmv path-mode launch per batch, got {counts}")
+        check(syncs == SERVE_ROUNDS, f"serve {label}: {syncs} host reads for "
+              f"{SERVE_ROUNDS} batches")
+        launches += counts["slab_path_spmv"]
+        stages = [serve_stage_times(torch, scorer, batcher, reqs[i * SERVE_BATCH:(i + 1) *
+                                                                SERVE_BATCH],
+                                    lams[i * SERVE_BATCH:(i + 1) * SERVE_BATCH], card)
+                  for i in range(1, 4)]
+        med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
+        print(f"[serve] {label}: one batch by stage (median of 3): host encode + pack "
+              f"{med['pack_ms']:.2f} ms, host->device copy {med['copy_ms']:.3f} ms "
+              f"({med['slab_bytes'] / 1e6:.1f} MB of request slab), slab_order "
+              f"{med['order_ms']:.3f} ms, kernel {med['kernel_ms']:.4f} ms "
+              f"({med['live']:.0f} live slots); staged device work {med['device_wall_ms']:.2f} "
+              f"ms of host wall; the scorer's whole call {med['score_ms']:.2f} ms; on {card}")
+        # hot swap: a 2-point sub-path, the batch scored on the new version
+        v0 = store.version
+        sub = PathResult(lambdas=path.lambdas[:2], betas=path.betas[:2], nnz=path.nnz[:2],
+                         f=path.f[:2], n_iters=path.n_iters[:2])
+        store.swap(sub)
+        got, v1 = scorer.score(warm, warm_lams)
+        print(f"[serve] {label}: hot swap v{v0} -> v{v1}, {len(got)} scores")
+        check(v1 == v0 + 1 and len(got) == warm.n_live and np.all(np.isfinite(got)),
+              f"serve {label}: the hot swap dropped the batch or its version")
+        # a path with one NaN coefficient, where a request of the batch reads it
+        bad = path.betas.clone()
+        row = int(np.flatnonzero((warm.row_idx[:, 0] < warm.n_loc).any(-1))[0])
+        i = int(warm.row_idx[row, 0, 0])
+        lam_i = int(StoreSnapshot(0, path.lambdas, bad, p).indices_of(warm_lams)[i])
+        bad[lam_i, row] = float("nan")
+        store.swap(PathResult(lambdas=path.lambdas, betas=bad, nnz=path.nnz, f=path.f,
+                              n_iters=path.n_iters))
+        again, v2 = scorer.score(warm, warm_lams)
+        ok = v2 == v1 and store.quarantined == [v1 + 1] and np.array_equal(again, got)
+        print(f"[serve] {label}: a version with one NaN coefficient (feature {row}, point "
+              f"{lam_i}, read by request {i}): quarantined {store.quarantined}, the batch "
+              f"rescored on v{v2} {'bit-equal' if np.array_equal(again, got) else 'DIFFERENT'}"
+              f" -> {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"serve {label}: the NaN version was not quarantined and rescored")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[serve] {label}: peak device memory {peak / 1e9:.3f} GB (the stack "
+              f"{store.snapshot.betas.numel() * 4 / 1e6:.1f} MB); on {card}")
+        out[label] = dict(rate=total / secs, ms=secs * 1e3 / SERVE_ROUNDS, peak=peak, **med)
+    out["save_ms"], out["load_ms"] = t_save * 1e3, t_load * 1e3
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1593,6 +2028,52 @@ def sparse_time_rows(torch, inp):
     ]
 
 
+def path_spmv_bytes(torch, inp):
+    """Bytes the path mode must move at ``inp``: the order's three streams
+    once per slot, per live slot its request's lambda index and its
+    coefficient, and one read and write per touched score."""
+    rows_s, n_loc = inp["order"].rows_s, inp["n_loc"]
+    live = int((rows_s < n_loc).sum())
+    touched = sum(int(torch.unique(r[r < n_loc]).numel())
+                  for r in rows_s.reshape(-1, rows_s.shape[-1]))
+    return 12 * rows_s.numel() + 8 * live + 8 * touched, 2 * live
+
+
+def serve_time_rows(torch, inputs):
+    """Row 5b of the kernel table: ``slab_spmv``'s path mode at the local
+    serve shape (one batch row of 2^20 x 8 slots), its plain version; no
+    single PyTorch call gathers a per-row coefficient."""
+    from repro_torch.kernels import ref, slab_spmv
+
+    inp = inputs[0]
+    out = torch.zeros(inp["rows"].shape[0], inp["n_loc"], device="cuda")
+    n_bytes, n_flops = path_spmv_bytes(torch, inp)
+    return [("slab_path_spmv", "cuda", "src/repro_torch/kernels/csrc/slab_spmv.cu",
+             "src/repro/kernels/sparse_slab.py:126",
+             lambda: slab_spmv.slab_path_spmv_kernel(inp["order"], inp["vals"], inp["lam_idx"],
+                                                     inp["betas"], out, n_loc=inp["n_loc"]),
+             lambda: ref.slab_path_spmv_scatter(inp["rows"], inp["vals"], inp["lam_idx"],
+                                                inp["betas"], inp["n_loc"]),
+             None, n_bytes, n_flops,
+             f"path mode (ops.slab_path_spmv, src/repro/kernels/ops.py:189) at the local serve "
+             f"shape {tuple(inp['rows'].shape)}, L={inp['betas'].shape[0]}, "
+             f"{n_flops // 2} live slots")]
+
+
+def serve_extra_times(torch, inputs, flush, card):
+    """The path mode at the mesh store's shape, beside its byte bound."""
+    from repro_torch.kernels import slab_spmv
+
+    inp = inputs[1]
+    out = torch.zeros(inp["rows"].shape[0], inp["n_loc"], device="cuda")
+    ms = time_ms(torch, lambda: slab_spmv.slab_path_spmv_kernel(
+        inp["order"], inp["vals"], inp["lam_idx"], inp["betas"], out, n_loc=inp["n_loc"]), flush)
+    n_bytes, n_flops = path_spmv_bytes(torch, inp)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    print(f"[times] slab_path_spmv at the mesh serve shape {tuple(inp['rows'].shape)}: kernel "
+          f"{ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {n_bytes} bytes) on {card}")
+
+
 def spmv_extra_times(torch, inp, flush, card):
     """slab_spmv without its fused dbeta update at the tile step, and at
     the margins' shape (16 blocks of p/16 features into zeroed margins),
@@ -1651,7 +2132,8 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
                  lambda: blocked_cd.blocked_cd_kernel(G, c, beta, db0, lam, 1e-6, block=16),
                  lambda: ref.blocked_cd_ref(G, c, beta, db0, lam, 1e-6, block=16),
                  tile_bytes, 2 * M * F * F + 10 * M * F))
-    rows = [(*row[:6], None, *row[6:], "") for row in rows] + sparse_time_rows(torch, sparse_inputs)
+    rows = ([(*row[:6], None, *row[6:], "") for row in rows] + sparse_time_rows(torch, sparse_inputs)
+            + serve_time_rows(torch, sparse_inputs["serve"]))
     rows = [(*row, F32_FLOPS_PER_S) for row in rows] + lm_time_rows(torch)
     table = []
     for name, route, source, replaces, kern, plain, library, n_bytes, n_flops, note, peak in rows:
@@ -1673,6 +2155,7 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
                       "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
     spmv_extra_times(torch, sparse_inputs, flush, card)
+    serve_extra_times(torch, sparse_inputs["serve"], flush, card)
     return table
 
 
@@ -2031,6 +2514,12 @@ def main() -> int:
         torch, cell, card, {mode: (sparse_lam, *fit[4:]) for mode, fit in sparse_fits.items()})
     for name, count in path_launches.items():
         launches[name] = launches.get(name, 0) + count
+    stream_launches, stream_runs = phase_streamed_path(torch, cell, card)
+    for name, count in stream_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    launches["slab_path_spmv"], serve_stats = phase_serve(
+        torch, card, path_walls["sequential"].pop("result"))
+    path_walls["blocked"].pop("result")
     phase_sparse_agreement(torch)
     phase_path_agreement(torch)
     errs.update(phase_lm_kernels(torch, gen))
@@ -2052,6 +2541,18 @@ def main() -> int:
               f"lambda_max/16 {w['to16_ms']:.1f} ms, {w['solves']} restricted solves of "
               f"{w['iters']} iterations in all, {w['syncs']} host syncs, {w['peak']:.2f} GB "
               f"peak, one screen pass {w['screen_ms']:.3f} ms, on {card}")
+    for label, r in stream_runs.items():
+        print(f"[times] streamed-path cell, {label} ({STREAM_PATH_LEN} points): "
+              f"{r['wall_ms']:.1f} ms, one screen pass {r['screen_ms']:.3f} ms moving "
+              f"{r['pass_bytes']} bytes, peak {r['peak'] / 1e9:.3f} GB, on {card}")
+    for label, r in serve_stats.items():
+        if isinstance(r, dict):
+            print(f"[times] serve {label}: {r['rate']:,.1f} scores/s, {r['ms']:.2f} ms per "
+                  f"batch (pack {r['pack_ms']:.2f}, copy {r['copy_ms']:.3f}, order "
+                  f"{r['order_ms']:.3f}, kernel {r['kernel_ms']:.4f} ms), peak "
+                  f"{r['peak'] / 1e9:.3f} GB, on {card}")
+    print(f"[times] serve checkpoint: save {serve_stats['save_ms']:.1f} ms, load "
+          f"{serve_stats['load_ms']:.1f} ms, on {card}")
     print(f"[times] lm serve {LM_ARCH}: prefill {lm_stats['prefill_ms']:.2f} ms, decode "
           f"{lm_stats['decode_ms_per_token']:.3f} ms/token, whole generation "
           f"{lm_stats['wall_s']:.3f} s, {lm_stats['peak_gb']:.2f} GB peak, on {card}")

@@ -13,14 +13,13 @@ all on the original feature axis.
   (:class:`~repro_torch.data.byfeature.SlabBuckets`);
 * :class:`ShardedDesign` -- a design on a (1, M) mesh
   (``repro_torch.launch.mesh``): the M feature blocks of the by-feature
-  solve. Slab layouts live there as mesh-padded work buckets, placed on
-  the device once (``data.residency``); margins, correlation and the
-  path's screen and gathers run per bucket;
+  solve. Slab layouts live there as mesh-padded work buckets
+  (``data.residency``): on the device once, or, under a
+  ``device_budget_bytes`` below their bytes, streamed from pinned host
+  memory through every pass; margins, correlation and the path's screen
+  and gathers run per bucket;
 * :func:`as_design` -- coerces arrays, :class:`ByFeature`,
   ``SlabBuckets`` and raw ``(row_idx, values)`` slabs into designs.
-
-Streamed residency (a device budget below the slab bytes) is not ported
-yet (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -39,7 +38,11 @@ from repro_torch.data.residency import BucketResidencyManager
 
 
 def _on(t, device) -> bool:
-    return t.device == torch.device(device)
+    """Whether ``t`` lies on ``device`` ("cuda" names the current card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return t.device.type == "cuda" and t.device.index == torch.cuda.current_device()
+    return t.device == dev
 
 
 @dataclass(eq=False)
@@ -330,9 +333,10 @@ class BucketedSlabDesign:
 
 @dataclass(eq=False)
 class _MeshSlabState:
-    """Per-(design, tile) mesh residency: the padded work buckets, placed
-    on the device once, and the work-axis bookkeeping of the screened
-    path. Built once, cached on the owning :class:`ShardedDesign`."""
+    """Per-(design, tile) mesh residency: the padded work buckets (on the
+    device, or streamed from the host under a budget) and the work-axis
+    bookkeeping of the screened path, on the mesh's device. Built once,
+    cached on the owning :class:`ShardedDesign`."""
 
     residency: BucketResidencyManager
     feat_map: torch.Tensor       # (p_work,) int64 original id per work position, sentinel p
@@ -362,11 +366,19 @@ class ShardedDesign:
     bucket for all M blocks), correlation through
     ``core.screening.make_sparse_corr``. The buckets' largest row index is
     read and checked once per residency (one counted host read), or by
-    the path driver together with lambda_max."""
+    the path driver together with lambda_max.
+
+    ``device_budget_bytes`` caps the padded slab-bucket bytes resident on
+    the device at once: below :meth:`slab_nbytes` the residency manager
+    streams the buckets from pinned host memory through every pass
+    instead of keeping them all resident (bit-identical results). With a
+    budget the slabs stay on the host (:meth:`to` leaves them there); set
+    it before the first residency build (:meth:`_mesh_state`)."""
 
     inner: object
     mesh: object                 # repro_torch.launch.mesh.DevMesh
     tile: int = 128
+    device_budget_bytes: Optional[int] = None
     _states: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
@@ -395,10 +407,14 @@ class ShardedDesign:
         return self.mesh.shape["data"]
 
     def to(self, device) -> "ShardedDesign":
+        if self.device_budget_bytes is not None and self.layout != "dense":
+            # the residency manager places (or streams) the slabs itself
+            return self
         inner = self.inner.to(device)
         if inner is self.inner:
             return self
-        return ShardedDesign(inner, self.mesh, tile=self.tile)
+        return ShardedDesign(inner, self.mesh, tile=self.tile,
+                             device_budget_bytes=self.device_budget_bytes)
 
     # -- mesh residency (slab layouts) ------------------------------------
 
@@ -429,10 +445,15 @@ class ShardedDesign:
         cap_tile = self.mdim * tile
         slabs = self._as_buckets()
         n_loc = slabs.n_loc
+        budget = self.device_budget_bytes
         padded, feat_parts, k_parts, max_rows = [], [], [], []
         for r_b, v_b, fid in slabs.buckets:
             if slab_dims(r_b, v_b, self.mesh, n) != n_loc:
                 raise ValueError("bucket n_loc inconsistent with mesh/n")
+            if budget is not None:
+                # the manager's sources live on the host: under a budget
+                # the bookkeeping below is made there too, then moved
+                r_b, v_b = r_b.cpu(), v_b.cpu()
             dev = r_b.device
             # pad each bucket to the mesh quantum: the screen and every
             # capacity stay mesh-aligned; all-sentinel slabs have zero
@@ -444,15 +465,21 @@ class ShardedDesign:
             k_parts.append((r_b < n_loc).sum(-1).amax(-1))
             max_rows.append(r_b.max())
             padded.append((r_b, v_b, fid))
+        mesh_dev = self.mesh.device
+
+        def on_dev(t):
+            return t.to(mesh_dev, non_blocking=True)
+
         st = _MeshSlabState(
-            residency=BucketResidencyManager(tuple(padded), device=padded[0][0].device),
-            feat_map=torch.cat(feat_parts),
-            k_arr=torch.cat(k_parts),
+            residency=BucketResidencyManager(tuple(padded), device=mesh_dev,
+                                             budget_bytes=budget),
+            feat_map=on_dev(torch.cat(feat_parts)),
+            k_arr=on_dev(torch.cat(k_parts)),
             k_max=max(int(b[0].shape[-1]) for b in padded),
             p_work=sum(int(b[0].shape[0]) for b in padded),
             n_loc=n_loc,
             cap_tile=cap_tile,
-            max_row=torch.stack(max_rows).max(),
+            max_row=on_dev(torch.stack(max_rows).max()),
         )
         self._states[tile] = st
         return st
@@ -485,6 +512,8 @@ class ShardedDesign:
         return tuple(out)
 
     def slab_nbytes(self, tile: Optional[int] = None) -> int:
+        """Total padded slab bytes (the sum of :meth:`slab_bucket_nbytes`);
+        a ``device_budget_bytes`` below this streams the buckets."""
         return sum(self.slab_bucket_nbytes(tile))
 
     def residency_stats(self) -> dict:
@@ -582,7 +611,7 @@ _DESIGN_TYPES = (DenseDesign, SlabDesign, BucketedSlabDesign, ShardedDesign)
 
 
 def as_design(data, *, n: Optional[int] = None, mesh=None,
-              tile: int = 128):
+              tile: int = 128, device_budget_bytes: Optional[int] = None):
     """Coerce an entry-point operand into a design.
 
     ``data`` may be a design (passed through), a dense (n, p) array or
@@ -590,7 +619,9 @@ def as_design(data, *, n: Optional[int] = None, mesh=None,
     ``(row_idx, values)`` slab pair (front-packing is detected, so
     hand-built slabs may interleave sentinel and live slots). ``n`` is
     required for the raw pair. With ``mesh``, the result is wrapped in a
-    :class:`ShardedDesign`.
+    :class:`ShardedDesign`; ``device_budget_bytes`` (mesh wrapping only)
+    is its residency budget, which streams the slab passes when it is
+    below the padded slab bytes.
     """
     if isinstance(data, _DESIGN_TYPES):
         d = data
@@ -623,5 +654,5 @@ def as_design(data, *, n: Optional[int] = None, mesh=None,
             f"dense (n, p) array, ByFeature, (row_idx, values) slabs, "
             f"SlabBuckets, or a design")
     if mesh is not None and not isinstance(d, ShardedDesign):
-        d = ShardedDesign(d, mesh, tile=tile)
+        d = ShardedDesign(d, mesh, tile=tile, device_budget_bytes=device_budget_bytes)
     return d

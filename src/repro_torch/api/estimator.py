@@ -65,6 +65,7 @@ from repro_torch.core.screening import (
 )
 from repro_torch.core.subproblem import layout_blocks
 from repro_torch.data.byfeature import k_class, scatter_features
+from repro_torch.data.residency import put_slab
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -248,8 +249,9 @@ def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False
         return _fit_mesh_dense(inner.X, y, lam, design.mesh, strat.opts,
                                beta0, verbose)
     if design.layout == "slab":
-        return _fit_mesh_slab(inner.row_idx, inner.values, y, lam, design.mesh,
-                              strat, beta0, verbose)
+        # under a device budget the slabs stay on the host until here
+        rows, vals = put_slab(inner.row_idx, inner.values, y.device)
+        return _fit_mesh_slab(rows, vals, y, lam, design.mesh, strat, beta0, verbose)
     # bucketed on a mesh: flatten through the bucket gather at the largest
     # K class, solve the flat slab problem, scatter back to the original
     # order (one work axis throughout: strat.opts.tile)
@@ -295,11 +297,25 @@ class LogisticL1:
     def _design(self, data, y=None):
         dev = resolve_device(self.device)
         n = None if y is None else int(len(y))
-        design = as_design(data, n=n, mesh=self.mesh, tile=self.opts.tile)
+        budget = self.opts.device_budget_bytes
+        design = as_design(data, n=n, mesh=self.mesh, tile=self.opts.tile,
+                           device_budget_bytes=budget)
         if isinstance(design, ShardedDesign):
             if self.mesh is not None and design.mesh is not self.mesh:
                 raise ValueError(
                     "design is sharded over a different mesh than the estimator's")
+            if budget is not None and design.device_budget_bytes != budget:
+                if design._states:
+                    # the residency exists under the design's own budget:
+                    # rebuilding it would double the device memory
+                    warnings.warn(
+                        f"ShardedDesign residency was already built with "
+                        f"device_budget_bytes={design.device_budget_bytes} but the "
+                        f"estimator's options say {budget}; keeping the existing "
+                        f"residency -- build the design with the same budget to "
+                        f"silence this", stacklevel=3)
+                else:
+                    design.device_budget_bytes = budget
             if design.mesh.device.type != dev.type:
                 raise ValueError(
                     f"the mesh lives on {design.mesh.device}, the estimator "

@@ -9,10 +9,12 @@ the one place (design layout, mesh, options) maps to an execution plan.
   :meth:`Strategy.use_densify`;
 * ``cycle_mode="auto"`` resolves to a concrete mode here;
 * ``cap_tile`` is the feature-capacity quantum of the screened path's
-  restricted solves: ``tile`` locally, ``M * tile`` on a (1, M) mesh.
-
-Streamed slab residency (``device_budget_bytes`` on a mesh) is not
-ported yet (ROADMAP queue 1 item 4) and raises.
+  restricted solves: ``tile`` locally, ``M * tile`` on a (1, M) mesh;
+* ``residency`` is "streamed" when a mesh slab design's device budget is
+  below its padded slab bytes (``data.residency`` then double-buffers
+  the buckets from the host through every pass), else "resident". A
+  budget on a sharded dense layout is rejected: the dense mesh solve
+  keeps X resident, so the budget would bound nothing.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ class Strategy:
     opts: DGLMNETOptions            # cycle_mode resolved to a concrete mode
     cap_tile: int                   # feature-capacity quantum (screened path)
     densify: Optional[bool] = None  # slab solver: force/forbid densify-once
+    residency: str = "resident"     # "resident" | "streamed" (mesh slabs)
 
     def use_densify(self, n_loc: int, k: int) -> bool:
         """Per-solve densify decision for the slab solver: the explicit
@@ -70,13 +73,18 @@ def resolve(design, opts: DGLMNETOptions, *,
     sharded = isinstance(design, ShardedDesign)
     if design.layout not in ("dense", "slab", "bucketed"):
         raise ValueError(f"unknown layout {design.layout!r}")
-    if sharded and opts.device_budget_bytes is not None:
-        raise ValueError(
-            "device_budget_bytes (streamed slab residency) is not ported yet "
-            "(ROADMAP queue 1, item 4)")
     execution = "mesh" if sharded else "local"
     solver = "slab" if (sharded and design.layout in ("slab", "bucketed")) else "dense"
     opts = _resolve_cycle(opts)
     cap_tile = (design.mdim if sharded else 1) * opts.tile
+    residency = "resident"
+    if sharded and design.device_budget_bytes is not None:
+        if solver != "slab":
+            raise ValueError(
+                "device_budget_bytes streams slab layouts only; a sharded dense "
+                "design keeps X resident -- build the design from slabs "
+                "(to_by_feature / to_slab_buckets) to stream")
+        if design.device_budget_bytes < design.slab_nbytes(opts.tile):
+            residency = "streamed"
     return Strategy(execution=execution, solver=solver, opts=opts,
-                    cap_tile=cap_tile, densify=densify)
+                    cap_tile=cap_tile, densify=densify, residency=residency)

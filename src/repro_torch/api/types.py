@@ -1,8 +1,10 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Path result types, the counterpart of ``repro/api/types.py``:
 :class:`PathPoint` (one lambda) and :class:`PathResult` (the path, its
-coefficients stacked into one (L, p) tensor). Persistence
-(``PathResult.save``/``load``) comes with the checkpoint slice."""
+coefficients stacked into one (L, p) tensor), with
+:meth:`PathResult.save` / :meth:`PathResult.load` in the reference's
+checkpoint format, so a path saved by either package serves from the
+other (fit once, serve many)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -10,6 +12,8 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 
 @dataclass
@@ -110,11 +114,69 @@ class PathResult:
         lams = np.maximum(np.asarray(self.lambdas, np.float64), 1e-300)
         return int(np.argmin(np.abs(np.log(lams) - np.log(max(lam, 1e-300)))))
 
+    # -- persistence (fit once, serve many) ---------------------------------
+
     def save(self, directory: str) -> str:
-        raise NotImplementedError(
-            "PathResult.save is not ported yet (ROADMAP queue 1 item 5)")
+        """Persist through ``checkpoint.save_pytree``: the stacked betas as
+        the array payload (leaf ``['betas']``), everything else (lambdas,
+        per-lambda scalars, metric and telemetry dicts) in the manifest's
+        JSON meta, so a serving process can load the path without the
+        training code or data. The files are the reference's."""
+        from repro_torch.checkpoint import save_pytree
+
+        meta = {
+            "kind": "PathResult",
+            "lambdas": [float(v) for v in self.lambdas],
+            "nnz": [int(v) for v in self.nnz],
+            "f": [float(v) for v in self.f],
+            "n_iters": [int(v) for v in self.n_iters],
+            "metrics": [_jsonable(d) for d in self.metrics],
+            "screen": [_jsonable(d) for d in self.screen],
+            "status": [int(v) for v in self.statuses],
+            "p": int(self.betas.shape[1]) if self.betas.dim() == 2 else 0,
+            "dtype": str(self.betas.dtype).replace("torch.", ""),
+        }
+        return save_pytree({"betas": self.betas}, directory, meta=meta)
 
     @classmethod
-    def load(cls, directory: str, **kw) -> "PathResult":
-        raise NotImplementedError(
-            "PathResult.load is not ported yet (ROADMAP queue 1 item 5)")
+    def load(cls, directory: str, *, device=DEFAULT_DEVICE) -> "PathResult":
+        """Inverse of :meth:`save` (and of the reference's
+        ``PathResult.save``): the stacked betas land on ``device``
+        (default ``"cuda"``, raising without a card)."""
+        from repro_torch.checkpoint import load_pytree, read_meta
+
+        dev = resolve_device(device)
+        meta = read_meta(directory)
+        if meta is None or meta.get("kind") != "PathResult":
+            raise ValueError(
+                f"{directory} is not a PathResult checkpoint (missing or "
+                f"mismatched manifest meta)")
+        like = {"betas": torch.empty((len(meta["lambdas"]), meta["p"]),
+                                     dtype=getattr(torch, meta["dtype"]))}
+        tree = load_pytree(directory, like, device=dev)
+        return cls(
+            lambdas=np.asarray(meta["lambdas"], np.float64),
+            betas=tree["betas"],
+            nnz=np.asarray(meta["nnz"], np.int64),
+            f=np.asarray(meta["f"], np.float64),
+            n_iters=np.asarray(meta["n_iters"], np.int64),
+            metrics=list(meta["metrics"]),
+            screen=list(meta["screen"]),
+            # checkpoints without statuses load as status=None (all OK)
+            status=(np.asarray(meta["status"], np.int64) if "status" in meta else None),
+        )
+
+
+def _jsonable(d: Optional[dict]) -> dict:
+    """Per-lambda dicts hold numpy and tensor scalars: coerce them for JSON."""
+    out = {}
+    for k, v in (d or {}).items():
+        if torch.is_tensor(v) and v.dim() == 0:
+            v = v.item()
+        if isinstance(v, np.integer):
+            out[k] = int(v)
+        elif isinstance(v, np.floating):
+            out[k] = float(v)
+        else:
+            out[k] = v
+    return out

@@ -3,10 +3,10 @@
 feature blocks: the counterpart of ``repro/core/dglmnet.py``.
 
 * :class:`DGLMNETOptions` -- the reference's option bundle, same fields
-  and the same eager validation. ``use_kernel`` and
-  ``device_budget_bytes`` are kept so bundles match, but the tensors'
-  device, not an option, picks kernels or plain versions, and residency
-  is not ported yet.
+  and the same eager validation. ``use_kernel`` is kept so bundles match,
+  but the tensors' device, not an option, picks kernels or plain
+  versions; ``device_budget_bytes`` is the mesh slab designs' residency
+  budget (``api.strategy``, ``data.residency``).
 * :func:`_iteration` -- one outer iteration, batched over the M blocks.
 * :func:`fit` -- delegates to the front door
   ``repro_torch.api.LogisticL1``.
@@ -47,8 +47,8 @@ class DGLMNETOptions:
     # safeguard), or "auto" (kernels.ops.prefer_blocked_cd heuristic)
     cycle_mode: str = "sequential"
     block: int = 16                  # B: coordinates per semi-parallel block
-    # kept for parity with the reference's bundles (slab residency is not
-    # ported yet)
+    # device-residency budget for mesh slab layouts: below the padded
+    # slab bytes the buckets stream from the host through every pass
     device_budget_bytes: Optional[int] = None
 
     def __post_init__(self):

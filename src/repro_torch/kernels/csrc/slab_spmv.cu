@@ -11,6 +11,16 @@
 // of every feature block in one launch). Given dbeta, the same launch also
 // advances the tile's coefficient update: dbeta[b, t] += d[b, t].
 //
+// The path mode (lam_idx not null) is the serving product behind
+// repro/kernels/ops.py slab_path_spmv: each example row i (a request)
+// picks its own coefficient row of a stacked path, so the coefficient of a
+// live slot (b, j, k) of row i is d[b * d_stride + lam_idx[i] * ldb + j]
+// (the (L, M * T) stack of M feature blocks of T, row stride ldb), read
+// from device memory: a stack of L x 2^20 floats does not fit in shared
+// memory. Sentinel slots never read lam_idx. The product and the sum order
+// are the margins mode's, so at a uniform lam_idx == l the result is bit
+// for bit that of d = the stack's row l.
+//
 // Bound on the H100: device memory, and mostly its latency. Each slot is
 // read once as three 4-byte streams in sorted order (row, slot index,
 // value) and each touched example row costs one scattered 4-byte
@@ -60,8 +70,8 @@ slab_spmv_kernel(const int* __restrict__ rows_s, const int* __restrict__ perm,
                  long long v_stride, const float* __restrict__ d,
                  long long d_stride, float* __restrict__ out,
                  long long o_stride, float* __restrict__ dbeta,
-                 long long db_stride, int S, int T, int K, int n_loc,
-                 float sign) {
+                 long long db_stride, const int* __restrict__ lam_idx,
+                 long long ldb, int S, int T, int K, int n_loc, float sign) {
     extern __shared__ float sm[];
     int* row_sh = reinterpret_cast<int*>(sm);   // [lim]: the row after the chunk
     float* prod_sh = sm + CHUNK + 1;
@@ -75,7 +85,8 @@ slab_spmv_kernel(const int* __restrict__ rows_s, const int* __restrict__ perm,
     const float* vs = vals_s + b * v_stride;
     const float* db = d + b * d_stride;
     float* ob = out + b * o_stride;
-    const bool staged = T <= D_SHARED_MAX;
+    const bool path = lam_idx != nullptr;        // per-row coefficient rows
+    const bool staged = !path && T <= D_SHARED_MAX;
 
     // 1. the chunk's three streams and the rows around them, unit stride
     int row[ITEMS], prev[ITEMS], slot[ITEMS];
@@ -122,7 +133,8 @@ slab_spmv_kernel(const int* __restrict__ rows_s, const int* __restrict__ perm,
         if (i < lim) {
             row_sh[i] = row[k];
             const bool live = row[k] >= 0 && row[k] < n_loc;
-            prod_sh[i] = live ? __fmul_rn(val[k], dsrc[slot[k] / K]) : 0.0f;
+            const float* coef = path && live ? dsrc + lam_idx[row[k]] * ldb : dsrc;
+            prod_sh[i] = live ? __fmul_rn(val[k], coef[slot[k] / K]) : 0.0f;
         }
     }
     __syncthreads();
@@ -139,8 +151,9 @@ slab_spmv_kernel(const int* __restrict__ rows_s, const int* __restrict__ perm,
             ++e;
         }
         if (e == lim && row_sh[lim] == r) {    // the run goes on past the chunk
+            const float* coef = path ? dsrc + lam_idx[r] * ldb : dsrc;
             for (long long q = c0 + lim; q < S && rs[q] == r; ++q)
-                acc = __fadd_rn(acc, __fmul_rn(vs[q], dsrc[pm[q] / K]));
+                acc = __fadd_rn(acc, __fmul_rn(vs[q], coef[pm[q] / K]));
         }
         ob[r] = __fadd_rn(old[k], sign * acc);
     }
@@ -151,21 +164,26 @@ slab_spmv_kernel(const int* __restrict__ rows_s, const int* __restrict__ perm,
 // the S = T * K slots of T features (slot = feature * K + k) in row-sorted
 // order; d (B, T) with batch stride d_stride; out (B, n_out) with batch
 // stride o_stride, n_loc <= n_out; dbeta (B, T) with batch stride
-// db_stride, or null. Returns cudaGetLastError() after the launch
-// (0 = launched).
+// db_stride, or null. The path mode: lam_idx (n_loc,) int32 and d the
+// (L, ...) stack with row stride ldb, batch row b's block at b * d_stride
+// (dbeta must then be null); lam_idx null is the margins mode. Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int slab_spmv_launch(const int* rows_s, const int* perm,
                                 long long s_stride, const float* vals_s,
                                 long long v_stride, const float* d,
                                 long long d_stride, float* out,
                                 long long o_stride, float* dbeta,
-                                long long db_stride, int B, int S, int T,
-                                int K, int n_loc, float sign, void* stream) {
+                                long long db_stride, const int* lam_idx,
+                                long long ldb, int B, int S, int T, int K,
+                                int n_loc, float sign, void* stream) {
     if (B == 0 || (S == 0 && dbeta == nullptr)) return 0;
+    if (lam_idx != nullptr && dbeta != nullptr) return (int)cudaErrorInvalidValue;
     const int chunks = S > 0 ? (S + CHUNK - 1) / CHUNK : 1;
-    const size_t smem = (size_t)(2 * CHUNK + 1 + (T <= D_SHARED_MAX ? T : 0)) * 4;
+    const bool staged = lam_idx == nullptr && T <= D_SHARED_MAX;
+    const size_t smem = (size_t)(2 * CHUNK + 1 + (staged ? T : 0)) * 4;
     dim3 grid((unsigned)chunks, (unsigned)B);
     slab_spmv_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         rows_s, perm, s_stride, vals_s, v_stride, d, d_stride, out, o_stride,
-        dbeta, db_stride, S, T, K, n_loc, sign);
+        dbeta, db_stride, lam_idx, ldb, S, T, K, n_loc, sign);
     return (int)cudaGetLastError();
 }

@@ -40,12 +40,17 @@ _KERNELS = {
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    """Launches per kernel since the last reset; ``slab_path_spmv`` is
+    ``slab_spmv``'s serving mode, counted apart."""
+    counts = {name: mod.launches for name, mod in _KERNELS.items()}
+    counts["slab_path_spmv"] = _slab_spmv.path_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    _slab_spmv.path_launches = 0
 
 
 def _on_cuda(*tensors) -> bool:
@@ -181,6 +186,25 @@ def slab_residual_update(r, rows, vals, d, *, order: SlabOrder = None, dbeta=Non
     if dbeta is not None:
         dbeta += d
     return r
+
+
+def slab_path_spmv(rows, vals, lam_idx, betas, *, n_loc: int, order: SlabOrder = None):
+    """Per-example-lambda slab product, the serving layer's scoring
+    primitive: rows/vals (..., T, K) with local example (request) rows,
+    sentinel ``n_loc``; ``lam_idx`` (n_loc,) int32 picks each row's point
+    of the stacked path ``betas`` (L, ..., T). Returns (..., n_loc) with
+    ``out[..., i] = sum_jk vals[..., j, k] betas[lam_idx[i], ..., j]
+    [rows[..., j, k] == i]``. At a uniform ``lam_idx == l`` it is
+    bit-equal to ``slab_spmv(rows, vals, betas[l])``, on the card and off
+    it. On the card one launch of ``slab_spmv``'s path mode; ``order`` as
+    for :func:`slab_spmv`."""
+    if _on_cuda(rows, vals, lam_idx, betas):
+        out = torch.zeros(*rows.shape[:-2], n_loc, dtype=torch.float32,
+                          device=rows.device)
+        return _slab_spmv.slab_path_spmv_kernel(
+            slab_order(rows, vals) if order is None else order, vals, lam_idx, betas, out,
+            n_loc=n_loc)
+    return ref.slab_path_spmv_scatter(rows, vals, lam_idx, betas, n_loc)
 
 
 def slab_corr(rows, vals, v):

@@ -122,6 +122,25 @@ def slab_spmv_scatter(safe, dv, n_loc: int):
     return out[:, :n_loc].reshape(*lead, n_loc)
 
 
+def slab_path_spmv_scatter(rows, vals, lam_idx, betas, n_loc: int):
+    """Plain version of ``ops.slab_path_spmv``: gather each live slot's
+    coefficient ``betas[lam_idx[row], ..., feature]`` (rows clamped, so a
+    sentinel reads row 0's index and is then masked), zero the sentinels,
+    and scatter as :func:`slab_spmv_scatter` does. At a uniform lam_idx
+    the products and the scatter order are those of the plain
+    ``slab_spmv``, so the two agree bit for bit."""
+    valid = rows < n_loc
+    li = lam_idx.long()[torch.where(valid, rows, 0).long()]            # (..., T, K)
+    *lead, t, k = rows.shape
+    coef = betas.to(torch.float32).reshape(betas.shape[0], -1, t)      # (L, B, T)
+    b = torch.arange(coef.shape[1], device=rows.device).reshape(*lead, 1, 1) if lead \
+        else torch.zeros((), dtype=torch.long, device=rows.device)
+    feat = torch.arange(t, device=rows.device)[:, None]
+    bsel = coef[li, b, feat]
+    dv = torch.where(valid, vals, 0.0).to(torch.float32) * bsel
+    return slab_spmv_scatter(rows.clamp_max(n_loc), dv, n_loc)
+
+
 def flash_attention_ref(q, k, v, *, causal=True):
     """Plain softmax attention, the plain version of kernels.flash_attention:
     q (B, S, H, D), k/v (B, S, Hk, D) with H a multiple of Hk (query head

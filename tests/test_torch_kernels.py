@@ -195,10 +195,12 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
     ops.slab_gram(rows, vals, torch.ones(5), torch.ones(5))
     ops.slab_spmv(rows, vals, torch.ones(2), n_loc=5)
     ops.slab_residual_update(torch.ones(5), rows, vals, torch.ones(2))
+    ops.slab_path_spmv(rows, vals, torch.zeros(5, dtype=torch.int32), torch.ones(1, 2), n_loc=5)
     ops.flash_attention(torch.zeros(1, 64, 2, 32), torch.zeros(1, 64, 1, 32),
                         torch.zeros(1, 64, 1, 32))
     assert ops.launch_counts() == {"logistic_stats": 0, "gram_cd": 0, "blocked_cd": 0,
-                                   "slab_gram": 0, "slab_spmv": 0, "flash_attention": 0}
+                                   "slab_gram": 0, "slab_spmv": 0, "flash_attention": 0,
+                                   "slab_path_spmv": 0}
     with pytest.raises(ValueError, match="mixed devices"):
         ops.logistic_stats(torch.zeros(4), torch.ones(4, device="meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):

@@ -413,13 +413,15 @@ def test_driver_host_reads_match_reference(problem, monkeypatch, kind, M):
     assert all(a.screen == b.screen for a, b in zip(port, ref))
 
 
-def test_path_refuses_what_is_not_ported(problem):
+def test_path_refuses_what_is_not_ported(problem, tmp_path):
     est = LogisticL1(DGLMNETOptions(**_opts()), device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
         est.path(problem["X"], problem["y"], path_len=2, checkpoint_every=1, resume_from="x")
     res = est.path(problem["X"], problem["y"], path_len=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        res.save("somewhere")
+    # a save / load round trip gives the same path back
+    back = PathResult.load(res.save(str(tmp_path / "path")), device="cpu")
+    assert torch.equal(back.betas, res.betas) and back.screen == res.screen
+    assert np.array_equal(back.lambdas, res.lambdas) and np.array_equal(back.f, res.f)
     assert res.index_of(res.lambdas[1] * 1.1) == 1 and len(res[0:2]) == 2
     assert torch.equal(est.beta_, res.betas[-1]) and est.lam_ == res.lambdas[-1]
     with pytest.raises(IndexError):

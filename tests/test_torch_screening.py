@@ -24,6 +24,7 @@ import repro.core.screening as jscr
 import repro.data.byfeature as jbf
 from repro.api import ShardedDesign as JShardedDesign
 from repro.api import SlabDesign as JSlabDesign
+from repro.data.residency import BucketResidencyManager as JBucketResidencyManager
 from repro.launch.mesh import make_dev_mesh as j_make_dev_mesh
 from repro_torch.api import BucketedSlabDesign, ShardedDesign, SlabDesign
 from repro_torch.configs.base import GLMConfig
@@ -255,8 +256,18 @@ def test_sharded_slab_design_matches_reference(problem, layout):
 def test_residency_manager_resident_only(problem):
     sb = tbf.to_slab_buckets(problem["bf"], 1)
     mgr = BucketResidencyManager(sb.buckets, device="cpu")
+    jmgr = JBucketResidencyManager(tuple((r.numpy(), v.numpy(), f) for r, v, f in sb.buckets))
     got = list(mgr.iter_buckets())
-    assert len(got) == len(sb.buckets) and mgr.stats()["hits"] == len(sb.buckets)
+    assert len(got) == len(list(jmgr.iter_buckets())) == len(sb.buckets)
+    # each step's prefetch of the next bucket is a hit too, as the reference counts
+    assert mgr.stats() == jmgr.stats() and mgr.stats()["hits"] == 2 * len(sb.buckets) - 1
     assert mgr.stats()["puts"] == len(sb.buckets) and not mgr.stats()["streamed"]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        BucketResidencyManager(sb.buckets, device="cpu", budget_bytes=sb.nbytes - 1)
+    # a budget one byte short of the buckets streams them, as the reference
+    streamed = BucketResidencyManager(sb.buckets, device="cpu", budget_bytes=sb.nbytes - 1)
+    jstreamed = JBucketResidencyManager(
+        tuple((r.numpy(), v.numpy(), f) for r, v, f in sb.buckets), budget_bytes=sb.nbytes - 1)
+    assert streamed.streamed and streamed.stats() == jstreamed.stats()
+    assert streamed.stats()["puts"] == 0 and streamed.min_budget_bytes == jstreamed.min_budget_bytes
+    assert len(list(streamed.iter_buckets())) == len(list(jstreamed.iter_buckets()))
+    assert streamed.stats() == jstreamed.stats()
+    assert streamed.resident_bytes <= sb.nbytes - 1

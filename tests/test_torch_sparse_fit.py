@@ -300,9 +300,15 @@ def test_mesh_entry_points_refuse_what_they_cannot_run(problem):
     with pytest.raises(ValueError, match="different mesh"):
         LogisticL1(DGLMNETOptions(**OPTS), mesh=cpu_mesh, device="cpu").fit(
             ShardedDesign(design, make_dev_mesh(1, 2, device="cpu")), problem["y"], 0.1)
-    with pytest.raises(ValueError, match="item 4"):
+    # a flat slab is one bucket: a budget of 1 cannot double-buffer it,
+    # and the path raises the reference's floor error
+    with pytest.raises(ValueError, match="cannot double-buffer"):
         LogisticL1(DGLMNETOptions(device_budget_bytes=1, **OPTS), mesh=cpu_mesh,
-                   device="cpu").fit(design, problem["y"], 0.1)
+                   device="cpu").path(design, problem["y"], path_len=2)
+    with pytest.raises(ValueError, match="cannot double-buffer"):
+        JLogisticL1(JOptions(device_budget_bytes=1, **OPTS), mesh=j_make_dev_mesh(1, 1)).path(
+            JSlabDesign(jnp.asarray(problem["rows"]), jnp.asarray(problem["vals"]),
+                        len(problem["y"])), problem["y"], path_len=2)
     bad = SlabDesign(design.row_idx, design.values, len(problem["y"]) - 200)
     with pytest.raises(ValueError, match="exceeds the local example count"):
         LogisticL1(DGLMNETOptions(**OPTS), mesh=cpu_mesh, device="cpu").fit(
