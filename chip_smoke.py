@@ -115,6 +115,32 @@ of which fails the run with a non-zero exit:
    batch rescored on the previous one. Prints scores/s, one batch's time
    by stage (host encode and pack, the copy, ``slab_order``, the kernel),
    the checkpoint's save and load wall and peak memory;
+8c. chaos -- the resilience drills on the cells above, under the port's
+   ``obs.observe()``, every ``faults.*``, ``retry.*`` and ``serve.swaps``
+   counter equal to what the drills inject: nan-inject (phase 4's
+   sequential fit with NaN margins at iteration 3, one solve: status
+   NONFINITE_OBJECTIVE after 2 iterations, beta finite, the history an
+   exact prefix of phase 4's, the host reads and kernel launches of a fit
+   cut at 3 iterations, a healthy fit after it bit-equal to phase 4's);
+   kill-resume (phase 8's sequential path with its eval, checkpointed at
+   every point, killed after 3 points, resumed for 2 points under sync
+   debug mode, where only the engine's door may synchronise, the
+   checkpoint reads included, killed again, resumed to the end: betas,
+   lambdas, f, nnz, iterations, statuses, screen counts and metrics
+   bit-equal to phase 8's path, host reads = phase 8's + one per
+   checkpoint + one lambda_max per resume; the walls and the checkpoint
+   bytes and ms per point); lost-bucket (phase 8a's streamed cell: two
+   lost puts retried, bit-equal to the resident path; three lost puts
+   after half the puts kill the checkpointed path with
+   ``RetriesExhausted``, and a new design from the same host buckets
+   resumes it bit-equal); corrupt (phase 8b's checkpoint bit-flipped,
+   truncated and stripped of its meta: ``PathStore.from_checkpoint``
+   refuses each with a typed error; the kill-resume directory's newest
+   slot bit-flipped: ``load_latest`` rolls back to the slot before);
+   overload (phase 8b's path on a local store, one failed swap, 5 ms per
+   dispatch: a bounded queue rejects, expired requests are shed, a NaN
+   version is quarantined and the batch rescored bit-equal, one path-mode
+   launch and one host read per scored batch); prints its wall;
 9. sparse agreement -- an 8192 x 4096 slab fit on the card against the
    same fit on the CPU, both slab-native, and one ``densify=True`` fit on
    both: relative objective gaps < 1e-4, and after a fixed 8 iterations
@@ -174,6 +200,7 @@ line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -529,7 +556,7 @@ def phase_main_path(torch):
     print(f"[main] {GLM_EPSILON.name}: X_train {tuple(ds.X_train.shape)} f32 on the card "
           f"(X {(ds.X_train.numel() + ds.X_test.numel()) * 4 / 1e9:.2f} GB in all), lam {lam:.4f}, "
           f"generated in {time.perf_counter() - t0:.2f} s")
-    launches, fits = {}, {}
+    launches, fits, results = {}, {}, {}
     for mode in ("sequential", "blocked"):
         opts = DGLMNETOptions(num_blocks=16, tile=128, max_iters=100,
                               cycle_mode=mode, block=16)
@@ -575,7 +602,8 @@ def phase_main_path(torch):
         for name in ("logistic_stats", tile_kernel):
             launches[name] = launches.get(name, 0) + counts[name]
         fits[mode] = (wall, wall2, res.n_iters, syncs)
-    return launches, fits, ds, lam
+        results[mode] = res
+    return launches, fits, ds, lam, results
 
 
 def phase_agreement(torch):
@@ -1542,7 +1570,8 @@ def phase_streamed_path(torch, cell, card):
                   f"times for {iters} restricted-solve iterations")
             launches[name] = launches.get(name, 0) + counts[name]
         runs[label] = dict(res=res, syncs=syncs, stats=stats, wall_ms=wall * 1e3,
-                           screen_ms=screen_ms, peak=peak, pass_bytes=pass_bytes)
+                           screen_ms=screen_ms, peak=peak, pass_bytes=pass_bytes, budget=budget,
+                           host_buckets=host_b)
         del design, resident, streamed
     a, b = runs["resident"]["res"], runs["streamed"]["res"]
     same = (torch.equal(a.betas, b.betas) and np.array_equal(a.f, b.f)
@@ -1724,6 +1753,381 @@ def phase_serve(torch, card, path):
         out[label] = dict(rate=total / secs, ms=secs * 1e3 / SERVE_ROUNDS, peak=peak, **med)
     out["save_ms"], out["load_ms"] = t_save * 1e3, t_load * 1e3
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# the chaos drills at full width: seeded faults on the cells above
+# ---------------------------------------------------------------------------
+
+#: points the killed path emits before it dies, and the resumed points run
+#: under torch's sync debug mode (killed again after them)
+CHAOS_KILL_AT, CHAOS_DEBUG_POINTS = 3, 2
+
+
+def path_diff(a, b) -> list:
+    """The fields in which two paths are not bit-equal: betas, lambdas, f,
+    nnz, iterations, statuses, screen telemetry and metrics."""
+    if len(a) != len(b):
+        return ["length"]
+    same = {"betas": a.betas.shape == b.betas.shape and bool((a.betas == b.betas).all()),
+            "screen": a.screen == b.screen, "metrics": a.metrics == b.metrics}
+    for key in ("lambdas", "f", "nnz", "n_iters", "statuses"):
+        same[key] = np.array_equal(getattr(a, key), getattr(b, key))
+    return [key for key, ok in same.items() if not ok]
+
+
+def chaos_nan_inject(torch, ds, lam, base):
+    """The dense cell's sequential fit with NaN margins at iteration 3
+    (one solve), against phase 4's fit and a healthy fit cut at 3
+    iterations."""
+    from repro_torch.api import DenseDesign, LogisticL1
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels import ops
+    from repro_torch.resilience import EngineFault, FaultPlan, inject_faults
+
+    opts = DGLMNETOptions(num_blocks=16, tile=128, max_iters=100, cycle_mode="sequential",
+                          block=16)
+    runs = {}
+    for label, run_opts, plan in (
+            ("tripped", opts, FaultPlan(engine=EngineFault("margins", at_iter=3),
+                                        engine_fires=1)),
+            ("cut", replace(opts, max_iters=3), None),
+            ("again", opts, None)):
+        ops.reset_launch_counts()
+        s0, t0 = engine.host_syncs, time.perf_counter()
+        with inject_faults(plan) if plan is not None else contextlib.nullcontext():
+            res = LogisticL1(run_opts, device="cuda").fit(DenseDesign(ds.X_train),
+                                                          ds.y_train, lam)
+        torch.cuda.synchronize()
+        runs[label] = (res, engine.host_syncs - s0, ops.launch_counts(),
+                       (time.perf_counter() - t0) * 1e3)
+    (bad, bad_reads, bad_counts, bad_ms), (_, cut_reads, cut_counts, _), \
+        (again, _, again_counts, _) = runs["tripped"], runs["cut"], runs["again"]
+    hist = bad.objective_history
+    print(f"[chaos] nan-inject (dense cell, sequential, NaN margins at iteration 3): status "
+          f"{bad.status_name}, {bad.n_iters} iterations, history {hist} (phase 4's first "
+          f"{len(hist)}: {base.objective_history[:len(hist)]}), {bad_reads} host reads (a fit "
+          f"cut at 3 iterations: {cut_reads}), launches {bad_counts} (cut: {cut_counts}), "
+          f"{bad_ms:.1f} ms; a healthy fit after it bit-equal to phase 4's: "
+          f"{torch.equal(again.beta, base.beta)}")
+    check(bad.status_name == "NONFINITE_OBJECTIVE" and bad.n_iters == 2,
+          f"nan-inject: {bad.status_name} after {bad.n_iters} iterations")
+    check(bool(torch.isfinite(bad.beta).all()), "nan-inject: the returned beta is not finite")
+    check(hist == base.objective_history[:len(hist)] and len(hist) == 3,
+          "nan-inject: the history is not an exact prefix of phase 4's fit")
+    check(torch.equal(again.beta, base.beta)
+          and again.objective_history == base.objective_history,
+          "nan-inject: the healthy fit after the fault differs from phase 4's")
+    check(bad_reads == cut_reads == 4, f"nan-inject: {bad_reads} host reads, a fit cut at "
+          f"3 iterations {cut_reads} (4 expected)")
+    for name in ("logistic_stats", "gram_cd"):
+        check(bad_counts[name] == cut_counts[name] > 0,
+              f"nan-inject: {name} launched {bad_counts[name]} times, the cut fit "
+              f"{cut_counts[name]}")
+    launches = Counter()
+    for _, _, counts, _ in runs.values():
+        launches.update(counts)
+    return launches
+
+
+def chaos_kill_resume(torch, cell, path, path_walls, card):
+    """Phase 8's sequential path, checkpointed at every point, killed after
+    CHAOS_KILL_AT points, resumed for CHAOS_DEBUG_POINTS under sync debug
+    mode and killed again, then resumed to its end: bit-equal to phase 8's
+    result. Returns the launches, the walls and the progress directory's
+    roll-back check."""
+    import tempfile
+
+    from repro_torch.api import LogisticL1, SlabDesign, estimator, make_design_eval
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.resilience import (FaultPlan, InjectedKill, PathProgress,
+                                        corrupt_checkpoint, inject_faults)
+
+    (rows, vals, y), (rt, vt, yt) = cell
+    mesh = make_dev_mesh(1, SPARSE_M)
+    design = SlabDesign(rows, vals, y.shape[0])
+    opts = DGLMNETOptions(cycle_mode="sequential", **SPARSE_OPTS)
+    evals = TimedEval(make_design_eval(SlabDesign(rt, vt, yt.shape[0]), yt, mesh=mesh,
+                                       tile=opts.tile))
+    est = LogisticL1(opts, mesh=mesh, device="cuda")
+    saves, real_save = [], estimator._save_progress
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        nbytes = real_save(*args, **kw)
+        saves.append((nbytes, (time.perf_counter() - t0) * 1e3))
+        return nbytes
+
+    def killed_at(points, debug=False):
+        def run():
+            try:
+                with inject_faults(FaultPlan(kill_after_points=points)):
+                    est.path(design, y, path_len=PATH_LEN, eval_fn=evals, checkpoint_every=1,
+                             resume_from=prog_dir)
+            except InjectedKill:
+                return True
+            return False
+        t0 = time.perf_counter()
+        if debug:
+            died, sites, stacks = under_sync_debug(torch, run)
+        else:
+            died, sites, stacks = run(), None, None
+        torch.cuda.synchronize()
+        return died, (time.perf_counter() - t0) * 1e3, sites, stacks
+
+    estimator._save_progress = timed_save
+    ops.reset_launch_counts()
+    engine.host_syncs = 0
+    try:
+        with tempfile.TemporaryDirectory() as prog_dir:
+            died1, wall1, _, _ = killed_at(CHAOS_KILL_AT)
+            died2, wall2, sites, stacks = killed_at(CHAOS_KILL_AT + CHAOS_DEBUG_POINTS,
+                                                    debug=True)
+            t0 = time.perf_counter()
+            resumed = est.path(design, y, path_len=PATH_LEN, eval_fn=evals,
+                               checkpoint_every=1, resume_from=prog_dir)
+            torch.cuda.synchronize()
+            wall3 = (time.perf_counter() - t0) * 1e3
+            syncs = engine.host_syncs
+            counts = ops.launch_counts()
+            # the newest slot bit-flipped: the store rolls back to the one before
+            prog = PathProgress(prog_dir)
+            newest = prog.pointer()
+            corrupt_checkpoint(prog.slot(newest), "bitflip", seed=newest)
+            idx, _, meta = prog.load_latest()
+    finally:
+        estimator._save_progress = real_save
+    diff = path_diff(resumed, path)
+    want = path_walls["syncs"] + PATH_LEN + 2
+    print(f"[chaos] kill-resume (webspam path cell, p = {rows.shape[0]}, sequential, "
+          f"{PATH_LEN} points, checkpoint_every=1, eval included): killed after "
+          f"{CHAOS_KILL_AT} points ({died1}) in {wall1:.1f} ms; resumed {CHAOS_DEBUG_POINTS} "
+          f"points under sync debug mode, killed again ({died2}), {wall2:.1f} ms; resumed to "
+          f"the end in {wall3:.1f} ms; in all {wall1 + wall2 + wall3:.1f} ms against the "
+          f"uninterrupted path's {path_walls['wall_ms']:.1f} ms (phase 8); on {card}")
+    print(f"[chaos] kill-resume: betas, lambdas, f, nnz, iterations, statuses, screen counts "
+          f"and metrics {f'DIFFERENT in {diff}' if diff else 'bit-equal'} to phase 8's path; "
+          f"host reads "
+          f"{syncs} (phase 8's {path_walls['syncs']} + {PATH_LEN} checkpoints + 2 resumes' "
+          f"lambda_max = {want}); synchronising calls of the resumed points under sync debug "
+          f"mode, by call site: {dict(sites)}")
+    print(f"[chaos] kill-resume: checkpoint per point (payload bytes, ms): "
+          f"{[(b, round(ms, 1)) for b, ms in saves]}; median "
+          f"{statistics.median(ms for _, ms in saves):.1f} ms, "
+          f"{statistics.median(b for b, _ in saves):.0f} bytes; on {card}")
+    print(f"[chaos] corrupt: the newest progress slot {newest} bit-flipped: load_latest rolled "
+          f"back to slot {idx} (next_index {meta['next_index']})")
+    check(died1 and died2, "kill-resume: an injected kill did not fire")
+    check(not diff, f"kill-resume: the resumed path differs from phase 8's in {diff}")
+    check(syncs == want, f"kill-resume: {syncs} host reads, expected {want}")
+    check_sync_sites(sites, stacks, "chaos resume")
+    check(len(saves) == PATH_LEN, f"kill-resume: {len(saves)} checkpoints for {PATH_LEN} points")
+    check(idx == newest - 1 and meta["next_index"] == newest,
+          f"corrupt: load_latest gave slot {idx} after slot {newest} was bit-flipped")
+    return counts, dict(killed_ms=wall1, debug_ms=wall2, resumed_ms=wall3, saves=saves)
+
+
+def chaos_lost_bucket(torch, cell, stream, card):
+    """Phase 8a's streamed cell (16 feature-range buckets from pinned host
+    memory, the same budget, path_len 4): two lost puts retried, then a
+    fatal window after half the puts, killed with checkpoints down and
+    resumed on a new design from the same host buckets."""
+    import tempfile
+
+    from repro_torch.api import LogisticL1, SlabDesign, as_design, make_design_eval
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.resilience import FaultPlan, PathProgress, RetriesExhausted, inject_faults
+
+    (_, _, y), (rt, vt, yt) = cell
+    mesh = make_dev_mesh(1, SPARSE_M)
+    opts = DGLMNETOptions(cycle_mode="sequential", **SPARSE_OPTS)
+    base = stream["resident"]["res"]
+    host_b, budget = stream["streamed"]["host_buckets"], stream["streamed"]["budget"]
+    est = LogisticL1(opts, mesh=mesh, device="cuda")
+    # phase 8a's eval, so that the metrics are compared too
+    evals = make_design_eval(SlabDesign(rt, vt, yt.shape[0]), yt, mesh=mesh, tile=opts.tile)
+
+    def design():
+        return as_design(host_b, mesh=mesh, tile=opts.tile, device_budget_bytes=budget)
+
+    ops.reset_launch_counts()
+    des = design()
+    t0 = time.perf_counter()
+    with inject_faults(FaultPlan(fail_prefetches=2)):
+        res = est.path(des, y, path_len=STREAM_PATH_LEN, eval_fn=evals)
+    torch.cuda.synchronize()
+    wall_t = (time.perf_counter() - t0) * 1e3
+    (stats,) = des.residency_stats().values()
+    diff_t = path_diff(res, base)
+    after = stats["puts"] // 2
+    with tempfile.TemporaryDirectory() as prog_dir:
+        ckpt = dict(path_len=STREAM_PATH_LEN, eval_fn=evals, checkpoint_every=1,
+                    resume_from=prog_dir)
+        died = False
+        t0 = time.perf_counter()
+        try:
+            with inject_faults(FaultPlan(fail_prefetches=3, fail_prefetches_after=after)):
+                est.path(design(), y, **ckpt)
+        except RetriesExhausted:
+            died = True
+        torch.cuda.synchronize()
+        wall_f = (time.perf_counter() - t0) * 1e3
+        landed = PathProgress(prog_dir).pointer()
+        t0 = time.perf_counter()
+        resumed = est.path(design(), y, **ckpt)
+        torch.cuda.synchronize()
+        wall_r = (time.perf_counter() - t0) * 1e3
+    diff_r = path_diff(resumed, base)
+    print(f"[chaos] lost-bucket transient (2 lost puts): {wall_t:.1f} ms against phase 8a's "
+          f"streamed {stream['streamed']['wall_ms']:.1f} ms (+{wall_t - stream['streamed']['wall_ms']:.1f}"
+          f" ms); residency {stats}; path {f'DIFFERENT in {diff_t}' if diff_t else 'bit-equal'}"
+          f" to the resident one; on {card}")
+    print(f"[chaos] lost-bucket fatal (3 lost puts after {after}): died with RetriesExhausted "
+          f"({died}) in {wall_f:.1f} ms, the last checkpoint at point {landed}; resumed on a new "
+          f"design in {wall_r:.1f} ms, {f'DIFFERENT in {diff_r}' if diff_r else 'bit-equal'} to "
+          f"the resident path; on {card}")
+    check(not diff_t, f"lost-bucket: the transient run differs from the resident path in {diff_t}")
+    check(stats["retries"] == 2 and stats["evictions"] > 0 and stats["streamed"],
+          f"lost-bucket: expected 2 retries and evictions, got {stats}")
+    check(died, "lost-bucket: the fatal window did not kill the path")
+    check(not diff_r, f"lost-bucket: the resumed path differs from the resident one in {diff_r}")
+    return ops.launch_counts(), dict(transient_ms=wall_t, fatal_ms=wall_f, resumed_ms=wall_r,
+                                     streamed_ms=stream["streamed"]["wall_ms"])
+
+
+def chaos_corrupt(path):
+    """Phase 8b's checkpoint, copied and damaged in each mode: the store
+    must refuse it with a typed error."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointCorruption
+    from repro_torch.resilience import RetriesExhausted, corrupt_checkpoint
+    from repro_torch.serve import PathStore
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "path")
+        path.save(src)
+        for mode in ("bitflip", "truncate", "drop-meta"):
+            d = os.path.join(tmp, mode)
+            shutil.copytree(src, d)
+            what = corrupt_checkpoint(d, mode, seed=20)
+            try:
+                PathStore.from_checkpoint(d, attempts=2)
+            except (CheckpointCorruption, RetriesExhausted, ValueError) as err:
+                cause = err.__cause__ if isinstance(err, RetriesExhausted) else None
+                out[mode] = f"{type(err).__name__}" + (f" ({type(cause).__name__})"
+                                                       if cause else "")
+            else:
+                fail(f"corrupt: a {mode} checkpoint loaded ({what})")
+    print(f"[chaos] corrupt: phase 8b's checkpoint damaged three ways, each refused: {out}")
+
+
+def chaos_overload(torch, path, card):
+    """Phase 8b's path served from a local store under one failed swap and
+    5 ms of latency per dispatch: a bounded queue, expired requests, a
+    NaN version quarantined."""
+    from repro_torch.api import PathResult
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve_glm import make_traffic
+    from repro_torch.resilience import FaultPlan, inject_faults
+    from repro_torch.serve import (InvalidRequest, Overloaded, PathScorer, PathStore,
+                                   RequestBatcher)
+
+    L, p = path.betas.shape
+    extra = 64
+    reqs, lams = make_traffic(np.random.default_rng(20), p, 2 * SERVE_BATCH + extra,
+                              path.lambdas, tokens_per=SERVE_TOKENS)
+    ops.reset_launch_counts()
+    with inject_faults(FaultPlan(fail_swaps=1, serve_latency_s=0.005)):
+        store = PathStore(path)                 # the first publish fails, the retry lands
+        scorer = PathScorer(store)
+        t = [0.0]
+        batcher = RequestBatcher(p, max_batch=SERVE_BATCH, pad_p_to=store.pad_p_to,
+                                 max_pending=SERVE_BATCH, default_ttl_s=1.0,
+                                 clock=lambda: t[0])
+        rejected = 0
+        for r, lam in zip(reqs[:SERVE_BATCH + extra], lams[:SERVE_BATCH + extra]):
+            try:
+                batcher.submit(r, lam)
+            except Overloaded:
+                rejected += 1
+        try:
+            batcher.submit({"x": float("inf")}, lams[0])
+            fail("overload: a non-finite request was admitted")
+        except InvalidRequest:
+            pass
+        t[0] = 2.0                              # every queued request expires
+        shed, _ = batcher.drain()
+        for r, lam in zip(reqs[SERVE_BATCH + extra:], lams[SERVE_BATCH + extra:]):
+            batcher.submit(r, lam)
+        batch, blams = batcher.drain()
+        s0, c0 = engine.host_syncs, ops.launch_counts()["slab_path_spmv"]
+        t0 = time.perf_counter()
+        scores, ver = scorer.score(batch, blams)
+        ms = (time.perf_counter() - t0) * 1e3
+        reads, launched = engine.host_syncs - s0, ops.launch_counts()["slab_path_spmv"] - c0
+        store.swap(PathResult(lambdas=path.lambdas, betas=torch.full_like(path.betas, float("nan")),
+                              nnz=path.nnz, f=path.f, n_iters=path.n_iters))
+        s0, c0 = engine.host_syncs, ops.launch_counts()["slab_path_spmv"]
+        again, ver2 = scorer.score(batch, blams)
+        reads2, launched2 = engine.host_syncs - s0, ops.launch_counts()["slab_path_spmv"] - c0
+    stats = batcher.stats
+    ok = ver2 == ver and np.array_equal(again, scores) and store.quarantined == [ver + 1]
+    print(f"[chaos] overload (local store, one failed swap, 5 ms per dispatch): version "
+          f"{store.version}, {rejected} of {SERVE_BATCH + extra} rejected by the bounded queue, "
+          f"{shed.n_live} live after the deadline; {len(scores)} scores in {ms:.2f} ms with "
+          f"{launched} path-mode launch and {reads} host read; a NaN version quarantined "
+          f"{store.quarantined}, the batch rescored on v{ver2} "
+          f"{'bit-equal' if ok else 'DIFFERENT'} ({launched2} launches, {reads2} reads: the "
+          f"NaN attempt and the rescore); batcher {stats}; on {card}")
+    check(rejected == extra and shed.n_live == 0 and stats["shed_expired"] == SERVE_BATCH
+          and stats["rejected_invalid"] == 1 and stats["drained"] == SERVE_BATCH,
+          f"overload: admission or shedding went wrong: {stats}")
+    check(len(scores) == SERVE_BATCH and np.all(np.isfinite(scores)),
+          "overload: the batch was not scored")
+    check(launched == reads == 1 and launched2 == reads2 == 2,
+          f"overload: {launched} launches and {reads} reads for one batch")
+    check(ok, "overload: the NaN version was not quarantined and the batch rescored")
+    return ops.launch_counts()
+
+
+def phase_chaos(torch, card, ds, lam, main_results, cell, path, path_walls, stream):
+    """Phase 8c: the chaos drills on the cells of phases 4, 8, 8a and 8b,
+    under the port's ``observe()``, every fault and retry counter held to
+    what the drills inject."""
+    from repro_torch.obs import observe
+
+    t0 = time.perf_counter()
+    launches = Counter()
+    with observe() as obs:
+        launches.update(chaos_nan_inject(torch, ds, lam, main_results["sequential"]))
+        counts, kill = chaos_kill_resume(torch, cell, path, path_walls, card)
+        launches.update(counts)
+        counts, lost = chaos_lost_bucket(torch, cell, stream, card)
+        launches.update(counts)
+        chaos_corrupt(path)
+        launches.update(chaos_overload(torch, path, card))
+    counters = {k: v for k, v in obs.summary()["counters"].items()
+                if k.startswith(("faults.", "retry.", "serve."))}
+    want = {"faults.engine": 1, "faults.kill": 2, "faults.prefetch": 5, "faults.swap": 1,
+            "faults.serve_delay": 3, "retry.retries": 7, "retry.exhausted": 3,
+            "serve.swaps": 2}
+    wall = time.perf_counter() - t0
+    print(f"[chaos] counters under observe(): {counters}; expected {want}")
+    print(f"[chaos] phase wall {wall:.1f} s; launches {dict(launches)}; on {card}")
+    check(counters == want, f"chaos: the fault and retry counters {counters} != {want}")
+    for name in ("logistic_stats", "gram_cd", "slab_gram", "slab_spmv", "slab_path_spmv"):
+        check(launches[name] > 0, f"chaos: {name} was not launched")
+    return dict(launches), dict(kill=kill, lost=lost, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -2499,7 +2903,7 @@ def main() -> int:
     phase_build(torch)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     errs = phase_kernels(torch, gen)
-    launches, fits, ds, lam = phase_main_path(torch)
+    launches, fits, ds, lam, main_results = phase_main_path(torch)
     phase_agreement(torch)
     t0 = time.perf_counter()
     cell = sparse_cell(torch)
@@ -2517,9 +2921,16 @@ def main() -> int:
     stream_launches, stream_runs = phase_streamed_path(torch, cell, card)
     for name, count in stream_launches.items():
         launches[name] = launches.get(name, 0) + count
-    launches["slab_path_spmv"], serve_stats = phase_serve(
-        torch, card, path_walls["sequential"].pop("result"))
+    seq_path = path_walls["sequential"].pop("result")
+    launches["slab_path_spmv"], serve_stats = phase_serve(torch, card, seq_path)
     path_walls["blocked"].pop("result")
+    chaos_launches, chaos = phase_chaos(torch, card, ds, lam, main_results, cell, seq_path,
+                                        path_walls["sequential"], stream_runs)
+    for name, count in chaos_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    del seq_path, main_results
+    for r in stream_runs.values():
+        r.pop("host_buckets")
     phase_sparse_agreement(torch)
     phase_path_agreement(torch)
     errs.update(phase_lm_kernels(torch, gen))
@@ -2553,6 +2964,13 @@ def main() -> int:
                   f"{r['peak'] / 1e9:.3f} GB, on {card}")
     print(f"[times] serve checkpoint: save {serve_stats['save_ms']:.1f} ms, load "
           f"{serve_stats['load_ms']:.1f} ms, on {card}")
+    k, lb = chaos["kill"], chaos["lost"]
+    print(f"[times] chaos: path killed after {CHAOS_KILL_AT} points {k['killed_ms']:.1f} ms, "
+          f"resumed {k['debug_ms'] + k['resumed_ms']:.1f} ms (uninterrupted "
+          f"{path_walls['sequential']['wall_ms']:.1f} ms), checkpoint per point median "
+          f"{statistics.median(ms for _, ms in k['saves']):.1f} ms; transient lost bucket "
+          f"{lb['transient_ms']:.1f} ms against {lb['streamed_ms']:.1f} ms streamed; phase "
+          f"{chaos['wall_s']:.1f} s; on {card}")
     print(f"[times] lm serve {LM_ARCH}: prefill {lm_stats['prefill_ms']:.2f} ms, decode "
           f"{lm_stats['decode_ms_per_token']:.3f} ms/token, whole generation "
           f"{lm_stats['wall_s']:.3f} s, {lm_stats['peak_gb']:.2f} GB peak, on {card}")

@@ -26,12 +26,19 @@ one ``device_get`` -- lambda_max, per KKT round the working-set count,
 the slab K class (slab meshes), the violation count and, when violators
 are budgeted, the budget's and the admitted count, per point the final
 count and (nnz, f). :func:`make_design_eval` reads each point's scores
-once. Not ported yet: checkpointed and resumed paths
-(``checkpoint_every=``, ``resume_from=``; ROADMAP queue 1 item 6) and the
-trace spans (item 7).
+once. A checkpointed path (``checkpoint_every=``) adds one read per
+checkpoint: the warm-start chain and the points not yet on the host,
+packed into one tensor (``engine.host_array``). Not ported yet: the
+trace spans (ROADMAP queue 1 item 7).
+
+Faults (``repro_torch.resilience``): every solve consults
+``arm_engine_fault()`` once (:func:`_dense_state`, which also serves the
+mesh and densify-once solves, and the slab solver), and the path driver
+calls ``maybe_kill`` after each point's checkpoint.
 """
 from __future__ import annotations
 
+import os
 import warnings
 from dataclasses import dataclass, field, replace
 from typing import Callable, List, Optional
@@ -41,7 +48,7 @@ import torch
 
 from repro_torch.api.design import ShardedDesign, as_design
 from repro_torch.api.strategy import Strategy, resolve
-from repro_torch.api.types import PathPoint, PathResult
+from repro_torch.api.types import PathPoint, PathResult, _jsonable
 from repro_torch.core import engine
 from repro_torch.core.dglmnet import DGLMNETOptions, FitResult, build_solver
 from repro_torch.core.distributed import (
@@ -67,6 +74,7 @@ from repro_torch.core.subproblem import layout_blocks
 from repro_torch.data.byfeature import k_class, scatter_features
 from repro_torch.data.residency import put_slab
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.resilience import PathProgress, arm_engine_fault, maybe_kill
 
 
 def lambda_max_design(design, y):
@@ -153,9 +161,65 @@ def _screened_point(p_cap, lam, lam_prev, beta, m, *, grad_abs,
 
 def _dense_state(X, y, beta, m, lam, opts: DGLMNETOptions):
     """The engine's solve over X laid out into (M, nt, n, tile) tiles once,
-    here (freed with the solve)."""
+    here (freed with the solve); one fault consult per solve."""
     Xt = layout_blocks(X, opts.num_blocks, opts.tile)
-    return build_solver(opts)(Xt, y, beta, m, lam)
+    return build_solver(opts, fault=arm_engine_fault())(Xt, y, beta, m, lam)
+
+
+def _host_state(arrays, dev):
+    """Host arrays of a progress slot as tensors on ``dev``: to a card
+    through pinned memory, without blocking the host."""
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
+    return {k: put(a) for k, a in arrays.items()}
+
+
+def _save_progress(progress: PathProgress, pt_idx: int, lams, lam_prev, beta, m,
+                   carry_mask, points, host_betas, p: int, p_cap: int) -> int:
+    """Checkpoint the path driver's warm-start chain (``beta`` and ``m`` on
+    the driver's axes, ``carry_mask``, ``lam_prev``) and the emitted points
+    as one rotated :class:`PathProgress` slot, in the reference's format
+    (``repro/api/estimator.py`` ``_save_progress``). The device state and
+    the points not yet on the host (``host_betas[i] is None``) cross in one
+    counted read; ``host_betas`` keeps each point's host copy for later
+    checkpoints. float32 arrays round-trip npz exactly and the JSON meta
+    round-trips Python floats exactly, so a resume continues
+    bit-identically. Returns the payload bytes written."""
+    fresh = [i for i, b in enumerate(host_betas) if b is None]
+    parts = [beta, m] + ([carry_mask.to(torch.float32)] if carry_mask is not None else [])
+    parts += [points[i].beta.to(torch.float32) for i in fresh]
+    flat = engine.host_array(torch.cat([t.reshape(-1) for t in parts]))
+    pieces = np.split(flat, np.cumsum([t.numel() for t in parts])[:-1])
+    for i, piece in zip(fresh, pieces[len(parts) - len(fresh):]):
+        host_betas[i] = piece
+    tree = {
+        "beta": pieces[0],
+        "m": pieces[1],
+        "carry_mask": (pieces[2].astype(np.int8) if carry_mask is not None
+                       else np.zeros((1,), np.int8)),
+        "point_betas": (np.stack(host_betas) if points
+                        else np.zeros((0, p), np.float32)),
+    }
+    meta = {
+        "kind": "PathProgress",
+        "next_index": pt_idx + 1,
+        "lam_prev": float(lam_prev),
+        "lams": [float(v) for v in lams],
+        "p": int(p),
+        "p_cap": int(p_cap),
+        "has_carry_mask": carry_mask is not None,
+        "points": [
+            {"lam": float(pt.lam), "nnz": int(pt.nnz), "f": float(pt.f),
+             "n_iters": int(pt.n_iters), "metrics": _jsonable(pt.metrics),
+             "screen": _jsonable(pt.screen), "status": int(pt.status)}
+            for pt in points
+        ],
+    }
+    directory = progress.save(pt_idx, tree, meta)
+    return os.path.getsize(os.path.join(directory, "arrays.npz"))
 
 
 def _fit_local_dense(X, y, lam, opts: DGLMNETOptions, beta0,
@@ -233,7 +297,7 @@ def _fit_mesh_slab(row_idx, values, y, lam, mesh, strat: Strategy, beta0,
     lay = layout_slabs(row_idx[:, 0], values[:, 0], num_blocks, opts.tile)
     solve = engine.make_solver(make_distributed_iteration_sparse(mesh, opts),
                                max_iters=opts.max_iters, rel_tol=opts.rel_tol,
-                               snap_tol=opts.snap_tol)
+                               snap_tol=opts.snap_tol, fault=arm_engine_fault())
     state = solve(lay, y, beta, m, lam)
     del lay
     return _finish(state, p, pad, verbose, "dist-sparse")
@@ -437,20 +501,31 @@ class LogisticL1:
         from the previous certified point without the carried working
         set, then (``cycle_mode="blocked"``) the sequential cycle, then
         skip and mark the point, holding the last certified state.
-        ``checkpoint_every``/``resume_from`` are not ported yet."""
-        if checkpoint_every is not None or resume_from is not None:
-            raise NotImplementedError(
-                "checkpoint_every= and resume_from= (resumable paths) are not "
-                "ported yet (ROADMAP queue 1 item 6)")
+
+        ``resume_from=`` names a progress directory
+        (:class:`~repro_torch.resilience.PathProgress`): progress found
+        there is resumed bit-identically from the last certified point;
+        ``checkpoint_every=k`` (requires ``resume_from``) checkpoints every
+        k-th point into it (atomic publish, CRC-checked payload). A
+        directory written for another grid, ``p`` or work-axis width
+        raises."""
+        if checkpoint_every is not None:
+            if checkpoint_every < 1:
+                raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+            if resume_from is None:
+                raise ValueError(
+                    "checkpoint_every= requires resume_from= (the progress directory "
+                    "checkpoints are written to and resumed from)")
         return self._path_impl(
             data, y, path_len=path_len, eval_fn=eval_fn, extra_lams=extra_lams,
             verbose=verbose, screen=screen, kkt_tol=kkt_tol,
             max_kkt_rounds=max_kkt_rounds, carry_working_set=carry_working_set,
-            violation_budget=violation_budget, densify=densify)
+            violation_budget=violation_budget, densify=densify,
+            checkpoint_every=checkpoint_every, resume_from=resume_from)
 
     def _path_impl(self, data, y, *, path_len, eval_fn, extra_lams, verbose, screen,
                    kkt_tol, max_kkt_rounds, carry_working_set, violation_budget,
-                   densify) -> PathResult:
+                   densify, checkpoint_every, resume_from) -> PathResult:
         design = self._design(data, y)
         y = self._tensor(y)
         strat = resolve(design, self.opts, densify=densify)
@@ -533,6 +608,35 @@ class LogisticL1:
         lam_prev = float(lmax)
         carry_mask = None
         points: List[PathPoint] = []
+        host_betas: List[Optional[np.ndarray]] = []   # the points' host copies
+        start = 0
+        progress = PathProgress(resume_from) if resume_from else None
+        state = progress.load_latest() if progress is not None else None
+        if state is not None:
+            idx, arrays, meta = state
+            if meta.get("kind") != "PathProgress":
+                raise ValueError(f"{resume_from} is not a path-progress directory")
+            if meta["lams"] != lams or meta["p"] != p or meta["p_cap"] != int(p_cap):
+                raise ValueError(
+                    f"progress in {resume_from} was written for a different path "
+                    f"(grid/shape mismatch) -- point it at a fresh directory or rerun "
+                    f"with the original arguments")
+            dev_arrays = _host_state(arrays, y.device)
+            beta, m = dev_arrays["beta"], dev_arrays["m"]
+            if meta["has_carry_mask"]:
+                carry_mask = dev_arrays["carry_mask"] != 0
+            lam_prev = float(meta["lam_prev"])
+            for j, d in enumerate(meta["points"]):
+                points.append(PathPoint(
+                    lam=float(d["lam"]), nnz=int(d["nnz"]), f=float(d["f"]),
+                    n_iters=int(d["n_iters"]), beta=dev_arrays["point_betas"][j],
+                    metrics=dict(d["metrics"]), screen=dict(d["screen"]),
+                    status=int(d["status"])))
+                host_betas.append(arrays["point_betas"][j])
+            start = int(meta["next_index"])
+            if verbose:
+                print(f"resuming path at point {start}/{len(lams)} from "
+                      f"{progress.slot(idx)}")
 
         def solve_point(lam, prev_mask, strat_):
             return _screened_point(
@@ -542,7 +646,8 @@ class LogisticL1:
                 kkt_tol=kkt_tol, max_kkt_rounds=max_kkt_rounds,
                 prev_mask=prev_mask, violation_budget=violation_budget)
 
-        for lam in lams:
+        for pt_idx in range(start, len(lams)):
+            lam = lams[pt_idx]
             if screen:
                 res, beta_new, m_new, info, mask = solve_point(lam, carry_mask, strat)
                 pt_status = int(res.status)
@@ -593,9 +698,16 @@ class LogisticL1:
                                     n_iters=0 if pt_status else res.n_iters,
                                     beta=beta_out, metrics=metrics, screen=info,
                                     status=pt_status))
+            host_betas.append(None)
             if verbose:
                 print(f"lambda={lam:10.4f} nnz={nnz:6d} f={f:12.4f} "
                       f"iters={points[-1].n_iters:3d} {info} {metrics}")
+            if checkpoint_every is not None and (pt_idx + 1 - start) % checkpoint_every == 0:
+                _save_progress(progress, pt_idx, lams, lam_prev, beta, m, carry_mask,
+                               points, host_betas, p, int(p_cap))
+            # the fault hook: a simulated process death between points, after
+            # the checkpoint landed (as a real mid-path kill would find it)
+            maybe_kill(pt_idx + 1)
         self.beta_ = points[-1].beta if points else None
         self.lam_ = lams[-1] if lams else None
         return PathResult.from_points(points)

@@ -131,14 +131,15 @@ def _iteration(Xt, y, beta, m, lam, opts: DGLMNETOptions, w=None, z=None):
     return dbeta, dm, grad_dot
 
 
-def build_solver(opts: DGLMNETOptions):
-    """The engine's outer loop with this bundle's iteration plugged in."""
+def build_solver(opts: DGLMNETOptions, *, fault=None):
+    """The engine's outer loop with this bundle's iteration plugged in;
+    ``fault`` (a ``resilience.EngineFault``) poisons one iteration."""
 
     def iteration(Xt, y, beta, m, lam, w, z):
         return _iteration(Xt, y, beta, m, lam, opts, w, z)
 
     return engine.make_solver(iteration, max_iters=opts.max_iters,
-                              rel_tol=opts.rel_tol, snap_tol=opts.snap_tol)
+                              rel_tol=opts.rel_tol, snap_tol=opts.snap_tol, fault=fault)
 
 
 def fit(X, y, lam: float, *, beta0: Optional[torch.Tensor] = None,

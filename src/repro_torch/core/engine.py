@@ -15,9 +15,22 @@ end on the host, so the port's contract is:
   packed into one tensor.
 
 A fit of k outer iterations therefore reads the device k + 1 times
-(:data:`host_syncs` counts them). Replaying the iteration as a CUDA graph
-and checking ``done`` every few iterations is left for later: the
-frozen-iterate lattice already makes iterations after ``done`` no-ops.
+(:data:`host_syncs` counts them). A solve given a ``fault`` (see
+``repro_torch.resilience``) reads the same: a solve tripped at
+iteration k reads k + 1 times, as a healthy one cut there would.
+
+Other host reads go through the same counted doors, :func:`host_read`
+and :func:`host_array`: a slab solve's entry read (k + 2), and the path
+driver's reads (``api/estimator.py``). A checkpointed path
+(``checkpoint_every=``) reads what the same path without checkpoints
+reads plus one :func:`host_array` per checkpoint (beta, m, the carried
+working set and the points not yet on the host, packed into one
+tensor); a resumed path's first reads are its lambda_max, then the
+points left, and the saved state reaches the card without a read.
+
+Replaying the iteration as a CUDA graph and checking ``done`` every few
+iterations is left for later: the frozen-iterate lattice already makes
+iterations after ``done`` no-ops.
 
 Per iteration, ``logistic_stats`` (the kernel on the card) computes the
 working statistics (w, z) once, and its NLL is the line search's f(0).
@@ -39,7 +52,8 @@ from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.linesearch import MAX_BACKTRACKS, f_alpha, line_search
+from repro_torch.core.linesearch import (MAX_BACKTRACKS, LineSearchResult, f_alpha,
+                                         line_search)
 from repro_torch.core.objective import l1_norm, objective
 from repro_torch.kernels.ops import logistic_stats
 
@@ -75,6 +89,14 @@ def host_read(t: torch.Tensor):
     return t.tolist()
 
 
+def host_array(t: torch.Tensor):
+    """:func:`host_read` for bulk data (a path checkpoint's state): one
+    counted read, returned as a numpy array."""
+    global host_syncs
+    host_syncs += 1
+    return t.cpu().numpy()
+
+
 class SolverState(NamedTuple):
     """Loop carry. ``it`` and ``status`` are host ints (the host reads
     the status every iteration); the rest lives on the device."""
@@ -102,12 +124,36 @@ class HostState(NamedTuple):
     unit_steps: int
 
 
-def _advance(iteration_fn, data, y, beta, m, lam):
-    """One outer step: fused working stats + subproblem + line search."""
+_POISON = {"nan": float("nan"), "inf": float("inf")}
+
+
+def _advance(iteration_fn, data, y, beta, m, lam, *, fault=None, fire: bool = False):
+    """One outer step: fused working stats + subproblem + line search.
+
+    ``fault`` (a ``resilience.EngineFault``) poisons this step when
+    ``fire`` (a host bool: the loop knows its iteration) is set:
+    ``"margins"`` replaces m before the working statistics, ``"stats"``
+    replaces (w, z) after them (f0 keeps the healthy NLL), and
+    ``"linesearch"`` forces an exhausted, strictly worse line search. An
+    iteration that does not fire queues exactly the healthy ops."""
+    poison = fault is not None and fire
+    if poison and fault.kind == "margins":
+        m = torch.full_like(m, _POISON[fault.mode])
     w, z, nll0 = logistic_stats(m, y)
     f0 = nll0 + lam * l1_norm(beta)
+    if poison and fault.kind == "stats":
+        w = torch.full_like(w, _POISON[fault.mode])
+        z = torch.full_like(z, _POISON[fault.mode])
     dbeta, dm, grad_dot = iteration_fn(data, y, beta, m, lam, w, z)
     res = line_search(m, dm, y, beta, dbeta, lam, grad_dot, f0=f0)
+    if poison and fault.kind == "linesearch":
+        # +1.0 dominates any ulp noise between f0 and the carried
+        # objective, so the stall guard's strict comparison always sees it
+        res = LineSearchResult(
+            alpha=torch.zeros_like(res.alpha),
+            f_new=f0 + 1.0,
+            took_unit_step=torch.zeros_like(res.took_unit_step),
+            backtracks=torch.full_like(res.backtracks, MAX_BACKTRACKS))
     return dbeta, dm, res
 
 
@@ -182,10 +228,13 @@ def _snap_back(s: SolverState, y, lam, snap_tol: float) -> SolverState:
 
 
 def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
-                snap_tol: float) -> Callable:
+                snap_tol: float, fault=None) -> Callable:
     """Builds ``solve(data, y, beta0, m0, lam) -> SolverState``: the outer
     loop with its guardrails and the snap-back epilogue. ``lam`` is a
-    Python float."""
+    Python float. ``fault`` (a ``resilience.EngineFault``, from the
+    estimator's one ``arm_engine_fault()`` consult per solve) poisons
+    iteration ``fault.at_iter`` (1-based); the host reads stay one per
+    iteration run, the poisoned one included."""
     if max_iters < 1:
         raise ValueError(f"max_iters must be >= 1, got {max_iters}")
 
@@ -206,7 +255,8 @@ def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
             unit_steps=torch.zeros((), dtype=torch.int32, device=m0.device),
         )
         for it in range(1, max_iters + 1):
-            dbeta, dm, res = _advance(iteration_fn, data, y, s.beta, s.m, lam)
+            dbeta, dm, res = _advance(iteration_fn, data, y, s.beta, s.m, lam, fault=fault,
+                                      fire=fault is not None and it == fault.at_iter)
             s, flags = _body(s, dbeta, dm, res, it, max_iters=max_iters,
                              rel_tol=rel_tol)
             done, status = host_read(flags)

@@ -29,7 +29,10 @@ only after the work that read it has run. Without that, eviction would
 corrupt a bucket still being read, silently.
 
 Every put runs under ``resilience.retry_call`` (``RuntimeError`` retried
-with backoff, exhaustion raised as ``RetriesExhausted``). The budget is a
+with backoff, exhaustion raised as ``RetriesExhausted``). Each attempt
+first consults ``resilience.take_prefetch_failure()`` (the lost-bucket
+drill), so a failed attempt enqueues no copy and records no event, and a
+retry starts clean. The budget is a
 high-water mark for the managed buckets: copies in flight and unmanaged
 operands (restricted-solve working sets) can briefly exceed it.
 :func:`put_slab` is the door for slab placements outside the managed
@@ -43,6 +46,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.resilience.inject import InjectedFault, take_prefetch_failure
 from repro_torch.resilience.retry import retry_call
 
 
@@ -144,6 +148,8 @@ class BucketResidencyManager:
         side stream when streaming to a card (with the event the copy
         records), else on the current stream."""
         def attempt():
+            if take_prefetch_failure():
+                raise InjectedFault(f"injected prefetch failure (bucket {i})")
             if self._stream is None:
                 return (*put_slab(r, v, self.device), None)
             with torch.cuda.stream(self._stream):

@@ -6,11 +6,19 @@ The residency manager's bucket puts, ``PathStore.swap`` and
 ``PathStore.from_checkpoint`` cross a boundary that can fail transiently
 (a device allocation, a checkpoint directory mid-rotation); wrapping
 them here keeps the failure typed and bounded.
+
+The sleep is injectable so tests run at full speed. When a metrics
+registry is active (``repro_torch.obs``), each retried failure bumps the
+process-wide ``retry.retries`` counter and each give-up bumps
+``retry.exhausted``; ``on_retry`` remains the per-call-site hook for
+legacy counters.
 """
 from __future__ import annotations
 
 import time
 from typing import Callable, Optional, Tuple, Type, TypeVar
+
+from repro_torch.obs import registry as _metrics
 
 T = TypeVar("T")
 
@@ -33,6 +41,7 @@ def retry_call(
     base_delay_s: float = 0.05,
     max_delay_s: float = 1.0,
     retry_on: Tuple[Type[BaseException], ...] = (RuntimeError, OSError),
+    sleep: Optional[Callable[[float], None]] = None,
     on_retry: Optional[Callable[[int, BaseException], None]] = None,
 ) -> T:
     """Call ``fn()`` with up to ``attempts`` tries and exponential backoff.
@@ -40,12 +49,14 @@ def retry_call(
     Delays run ``base_delay_s * 2**k`` capped at ``max_delay_s``. Only
     exceptions in ``retry_on`` are retried; anything else propagates at
     once (a typed rejection such as ``Overloaded`` must not be retried
-    into a success). ``on_retry(attempt_index, error)`` fires before each
-    backoff sleep. Raises :class:`RetriesExhausted` (chaining the last
-    error) when every attempt fails.
+    into a success). ``sleep`` replaces ``time.sleep`` for the backoff.
+    ``on_retry(attempt_index, error)`` fires before each backoff sleep.
+    Raises :class:`RetriesExhausted` (chaining the last error) when every
+    attempt fails.
     """
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
+    do_sleep = time.sleep if sleep is None else sleep
     last: Optional[BaseException] = None
     for k in range(attempts):
         try:
@@ -56,5 +67,7 @@ def retry_call(
                 break
             if on_retry is not None:
                 on_retry(k, err)
-            time.sleep(min(base_delay_s * (2.0 ** k), max_delay_s))
+            _metrics.counter("retry.retries").inc()
+            do_sleep(min(base_delay_s * (2.0 ** k), max_delay_s))
+    _metrics.counter("retry.exhausted").inc()
     raise RetriesExhausted(attempts, last) from last

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.data.residency import put_slab
 from repro_torch.kernels import ops as kops
+from repro_torch.resilience.inject import serve_delay
 from repro_torch.serve.ingest import PackedBatch
 from repro_torch.serve.store import PathStore, StoreSnapshot
 
@@ -111,6 +112,7 @@ class PathScorer:
             lam_idx = np.zeros(batch.batch_cap, np.int32)
             if batch.n_live:
                 lam_idx[:batch.n_live] = snap.indices_of(lams)
+            serve_delay()                   # the chaos drills' latency injection point
             scores = np.asarray(engine.host_read(self._dispatch(batch, lam_idx, snap)),
                                 np.float32)
             live = scores[:batch.n_live]

@@ -25,6 +25,8 @@ import torch
 
 from repro_torch.api.types import PathResult
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs import registry as obs_registry
+from repro_torch.resilience.inject import InjectedFault, take_load_failure, take_swap_failure
 from repro_torch.resilience.retry import retry_call
 
 
@@ -124,6 +126,8 @@ class PathStore:
 
     def _publish(self, result: PathResult, p: int) -> StoreSnapshot:
         """One build-then-flip attempt (the retried unit of :meth:`swap`)."""
+        if take_swap_failure():
+            raise InjectedFault("injected PathStore.swap failure")
         src = torch.as_tensor(result.betas, dtype=torch.float32)
         # a stack of the store's own, padded to the alignment
         betas = torch.zeros(src.shape[0], p + (-p) % self.pad_p_to,
@@ -138,6 +142,7 @@ class PathStore:
                             betas=betas, p=p)
         self._prev = self._snap   # last-good, for quarantine()
         self._snap = new          # the publish
+        obs_registry.counter("serve.swaps").inc()
         return new
 
     # -- rollback -----------------------------------------------------------
@@ -162,9 +167,15 @@ class PathStore:
                         device=DEFAULT_DEVICE, attempts: int = 3) -> "PathStore":
         """Fit once, serve many: load a ``PathResult.save`` checkpoint
         (either package's) and publish it. The load is retried with
-        backoff; a checkpoint that stays corrupt raises
-        ``RetriesExhausted`` with the ``CheckpointCorruption`` chained."""
+        backoff (transient filesystem errors and injected faults); a
+        checkpoint that stays corrupt raises ``RetriesExhausted`` with the
+        ``CheckpointCorruption`` chained."""
         dev = mesh.device if mesh is not None else resolve_device(device)
-        result = retry_call(lambda: PathResult.load(directory, device=dev),
-                            attempts=attempts, base_delay_s=0.01)
+
+        def load() -> PathResult:
+            if take_load_failure():
+                raise InjectedFault("injected checkpoint-load failure")
+            return PathResult.load(directory, device=dev)
+
+        result = retry_call(load, attempts=attempts, base_delay_s=0.01)
         return cls(result, mesh=mesh, tile=tile, device=dev)

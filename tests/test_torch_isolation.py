@@ -34,6 +34,17 @@ def test_port_files_exist():
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "gram_cd.cu").exists()
 
 
+def test_the_walk_covers_obs_and_resilience():
+    """The stdlib-only copies of ``repro.obs`` and ``repro.resilience``
+    are the likeliest to import the reference by habit: the AST walk
+    must check each of them (and the chaos launcher)."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    for name in ("obs/__init__.py", "obs/registry.py", "obs/trace.py", "obs/export.py",
+                 "obs/report.py", "resilience/__init__.py", "resilience/inject.py",
+                 "resilience/progress.py", "resilience/retry.py", "launch/chaos_glm.py"):
+        assert name in checked, name
+
+
 @pytest.mark.parametrize("path", CHECKED, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_reference(path):
     bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]
@@ -58,7 +69,8 @@ def test_importing_the_port_loads_neither_jax_nor_triton():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
-@pytest.mark.parametrize("entry", ["estimator", "dataset", "from_reference", "fit"])
+@pytest.mark.parametrize("entry", ["estimator", "dataset", "from_reference", "fit",
+                                   "chaos_glm"])
 def test_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -66,6 +78,7 @@ def test_entry_points_raise_without_a_card(entry):
     from repro_torch.configs.base import GLMConfig
     from repro_torch.core.dglmnet import fit
     from repro_torch.data.synthetic import make_glm_dataset
+    from repro_torch.launch import chaos_glm
 
     X = np.zeros((8, 4), np.float32)
     y = np.ones(8, np.float32)
@@ -75,6 +88,7 @@ def test_entry_points_raise_without_a_card(entry):
                                             np.random.default_rng(0)),
         "from_reference": lambda: from_reference(np.zeros(4), 0.1),
         "fit": lambda: fit(X, y, 0.1),
+        "chaos_glm": lambda: chaos_glm.main(["--smoke"]),
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()

@@ -415,9 +415,15 @@ def test_driver_host_reads_match_reference(problem, monkeypatch, kind, M):
 
 def test_path_refuses_what_is_not_ported(problem, tmp_path):
     est = LogisticL1(DGLMNETOptions(**_opts()), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        est.path(problem["X"], problem["y"], path_len=2, checkpoint_every=1, resume_from="x")
-    res = est.path(problem["X"], problem["y"], path_len=2)
+    # resumable paths are ported (tests/test_torch_resilience.py); what the
+    # reference refuses, the port refuses
+    with pytest.raises(ValueError, match="requires resume_from"):
+        est.path(problem["X"], problem["y"], path_len=2, checkpoint_every=1)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        est.path(problem["X"], problem["y"], path_len=2, checkpoint_every=0,
+                 resume_from=str(tmp_path / "progress"))
+    res = est.path(problem["X"], problem["y"], path_len=2, checkpoint_every=1,
+                   resume_from=str(tmp_path / "progress"))
     # a save / load round trip gives the same path back
     back = PathResult.load(res.save(str(tmp_path / "path")), device="cpu")
     assert torch.equal(back.betas, res.betas) and back.screen == res.screen
