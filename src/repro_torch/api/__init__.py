@@ -5,13 +5,13 @@ by-feature slabs, nnz-bucketed slabs, and any of them on a (1, M)
 mesh)."""
 from repro_torch.api.convert import (from_reference, lm_params_from_reference,
                                      path_from_reference)
-from repro_torch.api.design import (BucketedSlabDesign, DenseDesign, ShardedDesign,
+from repro_torch.api.design import (BucketedSlabDesign, DenseDesign, Design, ShardedDesign,
                                     SlabDesign, as_design)
 from repro_torch.api.estimator import LogisticL1, lambda_max_design, make_design_eval
 from repro_torch.api.strategy import Strategy, resolve
 from repro_torch.api.types import PathPoint, PathResult
 
-__all__ = ["BucketedSlabDesign", "DenseDesign", "LogisticL1", "PathPoint", "PathResult",
+__all__ = ["BucketedSlabDesign", "DenseDesign", "Design", "LogisticL1", "PathPoint", "PathResult",
            "ShardedDesign", "SlabDesign", "Strategy", "as_design", "from_reference",
            "lambda_max_design", "lm_params_from_reference", "make_design_eval",
            "path_from_reference", "resolve"]

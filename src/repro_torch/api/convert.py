@@ -40,6 +40,7 @@ def path_from_reference(ref, *, device=DEFAULT_DEVICE):
     from repro_torch.api.types import PathResult
 
     def scalars(d):
+        # allow[torch-host-sync]: a numpy scalar of the reference's telemetry, not a tensor
         return {k: (v.item() if isinstance(v, np.generic) else v) for k, v in d.items()}
 
     status = getattr(ref, "status", None)

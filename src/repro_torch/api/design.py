@@ -18,13 +18,14 @@ all on the original feature axis.
   ``device_budget_bytes`` below their bytes, streamed from pinned host
   memory through every pass; margins, correlation and the path's screen
   and gathers run per bucket;
+* :class:`Design` -- the protocol every layout above satisfies;
 * :func:`as_design` -- coerces arrays, :class:`ByFeature`,
   ``SlabBuckets`` and raw ``(row_idx, values)`` slabs into designs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import ClassVar, Optional, Tuple
+from typing import ClassVar, Optional, Protocol, Tuple, runtime_checkable
 
 import numpy as np
 import torch
@@ -43,6 +44,28 @@ def _on(t, device) -> bool:
     if dev.type == "cuda" and dev.index is None:
         return t.device.type == "cuda" and t.device.index == torch.cuda.current_device()
     return t.device == dev
+
+
+@runtime_checkable
+class Design(Protocol):
+    """What every data layout answers (see the module docstring); the
+    counterpart of ``repro.api.Design``."""
+
+    layout: str
+
+    @property
+    def shape(self) -> Tuple[int, int]: ...          # (n, p)
+
+    def margins(self, beta): ...                     # X @ beta -> (n,)
+
+    def correlation(self, v): ...                    # X^T v -> (p,)
+
+    def gram_tile(self, w, r, start: int, width: int): ...  # (G, c)
+
+    def gather(self, beta, mask, cap: int, *, k_cap: Optional[int] = None):
+        ...                                          # (sub design, beta_sub, idx)
+
+    def scatter(self, beta_sub, idx): ...            # -> full beta (p,)
 
 
 @dataclass(eq=False)
@@ -188,6 +211,7 @@ class SlabDesign:
     def k_per_feature(self) -> np.ndarray:
         """Host (p,) max live slots per feature over shards."""
         live = (self.row_idx < self.n_loc).sum(dim=-1).amax(dim=-1)
+        # allow[torch-host-sync]: host bookkeeping of the K classes for the layout tests; no solve calls it
         return live.cpu().numpy()
 
     def densify(self):
@@ -314,6 +338,7 @@ class BucketedSlabDesign:
 
     def k_per_feature(self) -> np.ndarray:
         """Host (p,) per-feature max live slots, in work (bucket) order."""
+        # allow[torch-host-sync]: host bookkeeping of the K classes for the layout tests; no solve calls it
         parts = [(r_b < self.n_loc).sum(-1).amax(-1).cpu().numpy()
                  for r_b, _, _ in self.slabs.buckets]
         return np.concatenate(parts) if parts else np.zeros(0, np.int64)
@@ -453,6 +478,7 @@ class ShardedDesign:
             if budget is not None:
                 # the manager's sources live on the host: under a budget
                 # the bookkeeping below is made there too, then moved
+                # allow[torch-host-sync]: under a budget the buckets' sources live on the host (a card source is copied there once, when the residency is built, before any solve)
                 r_b, v_b = r_b.cpu(), v_b.cpu()
             dev = r_b.device
             # pad each bucket to the mesh quantum: the screen and every
@@ -481,6 +507,9 @@ class ShardedDesign:
             cap_tile=cap_tile,
             max_row=on_dev(torch.stack(max_rows).max()),
         )
+        # mirror the manager's counters onto an active metrics registry (a
+        # lazy callback; residency_stats() stays the source of truth)
+        st.residency.register_metrics(name=f"residency.tile{st.cap_tile}")
         self._states[tile] = st
         return st
 

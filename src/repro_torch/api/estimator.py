@@ -28,8 +28,15 @@ are budgeted, the budget's and the admitted count, per point the final
 count and (nnz, f). :func:`make_design_eval` reads each point's scores
 once. A checkpointed path (``checkpoint_every=``) adds one read per
 checkpoint: the warm-start chain and the points not yet on the host,
-packed into one tensor (``engine.host_array``). Not ported yet: the
-trace spans (ROADMAP queue 1 item 7).
+packed into one tensor (``engine.host_array``).
+
+Trace spans (``repro_torch.obs``): under an active tracer the path emits
+the reference's tree, ``path > lambda_grid / lambda_point >
+{screen_round, restricted_solve, kkt_check, point_finish}``, with the
+reference's arguments. Each span closes at a host read the driver makes
+anyway, so work queued on the card between two reads is timed in the
+span that owns the later read; tracing adds no read, and with no tracer
+every span is the shared null span.
 
 Faults (``repro_torch.resilience``): every solve consults
 ``arm_engine_fault()`` once (:func:`_dense_state`, which also serves the
@@ -74,6 +81,7 @@ from repro_torch.core.subproblem import layout_blocks
 from repro_torch.data.byfeature import k_class, scatter_features
 from repro_torch.data.residency import put_slab
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience import PathProgress, arm_engine_fault, maybe_kill
 
 
@@ -109,7 +117,11 @@ def _screened_point(p_cap, lam, lam_prev, beta, m, *, grad_abs,
     points (blitz-style growth); within a point violators re-enter under
     a budget of ``min(violation_budget, 2 |A|)`` per round, the strongest
     first, lifted on the penultimate round so certification completes
-    within ``max_kkt_rounds``. Returns (res, beta, m, info, mask)."""
+    within ``max_kkt_rounds``. Returns (res, beta, m, info, mask).
+
+    Spans: ``screen_round`` closes at the working-set count's read,
+    ``restricted_solve`` at the solve's own last read, ``kkt_check`` at
+    the violation count's read."""
     g_abs = grad_abs(m)
     mask = strong_rule_mask(g_abs, lam, lam_prev, beta)
     if prev_mask is not None:
@@ -120,14 +132,17 @@ def _screened_point(p_cap, lam, lam_prev, beta, m, *, grad_abs,
     cap = 0
     deferred = 0
     for rounds in range(1, max_kkt_rounds + 1):
-        count = int(engine.host_read(mask.sum()))
+        with obs_trace.span("screen_round", round=rounds) as sr:
+            count = int(engine.host_read(mask.sum()))
+            sr.set(active=count)
         if count == 0:
             # empty working set: beta stays 0
             beta_new, m_new = beta, m
             res = empty_result(beta)
         else:
             cap = capacity_bucket(count, p_cap, tile=cap_tile)
-            res, beta_new, m_new = restricted_solve(mask, cap, beta)
+            with obs_trace.span("restricted_solve", active=count, capacity=cap):
+                res, beta_new, m_new = restricted_solve(mask, cap, beta)
             if res.status:
                 # a guardrail trip: certification cannot proceed on a
                 # degraded iterate; return the input state (the last
@@ -135,9 +150,11 @@ def _screened_point(p_cap, lam, lam_prev, beta, m, *, grad_abs,
                 info = {"active": count, "capacity": cap, "kkt_rounds": rounds,
                         "deferred": deferred, "status": int(res.status)}
                 return res, beta, m, info, mask
-        g_abs = grad_abs(m_new)
-        viol = kkt_violations(g_abs, lam, mask, tol=kkt_tol)
-        n_viol = int(engine.host_read(viol.sum()))
+        with obs_trace.span("kkt_check", round=rounds) as kk:
+            g_abs = grad_abs(m_new)
+            viol = kkt_violations(g_abs, lam, mask, tol=kkt_tol)
+            n_viol = int(engine.host_read(viol.sum()))
+            kk.set(violations=n_viol)
         if n_viol == 0:
             break
         if violation_budget is not None and rounds < max_kkt_rounds - 1:
@@ -508,7 +525,14 @@ class LogisticL1:
         ``checkpoint_every=k`` (requires ``resume_from``) checkpoints every
         k-th point into it (atomic publish, CRC-checked payload). A
         directory written for another grid, ``p`` or work-axis width
-        raises."""
+        raises.
+
+        Under an active ``repro_torch.obs`` tracer the path emits the
+        ``path > lambda_grid / lambda_point > {screen_round,
+        restricted_solve, kkt_check, point_finish}`` span tree, each
+        ``lambda_point`` carrying its nnz, f and status; the spans close at
+        the driver's own host reads, so a traced path reads the device as
+        often as an untraced one and gives the same result."""
         if checkpoint_every is not None:
             if checkpoint_every < 1:
                 raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
@@ -516,12 +540,15 @@ class LogisticL1:
                 raise ValueError(
                     "checkpoint_every= requires resume_from= (the progress directory "
                     "checkpoints are written to and resumed from)")
-        return self._path_impl(
-            data, y, path_len=path_len, eval_fn=eval_fn, extra_lams=extra_lams,
-            verbose=verbose, screen=screen, kkt_tol=kkt_tol,
-            max_kkt_rounds=max_kkt_rounds, carry_working_set=carry_working_set,
-            violation_budget=violation_budget, densify=densify,
-            checkpoint_every=checkpoint_every, resume_from=resume_from)
+        with obs_trace.span("path", path_len=path_len, screen=screen) as sp:
+            result = self._path_impl(
+                data, y, path_len=path_len, eval_fn=eval_fn, extra_lams=extra_lams,
+                verbose=verbose, screen=screen, kkt_tol=kkt_tol,
+                max_kkt_rounds=max_kkt_rounds, carry_working_set=carry_working_set,
+                violation_budget=violation_budget, densify=densify,
+                checkpoint_every=checkpoint_every, resume_from=resume_from)
+            sp.set(points=len(result))
+            return result
 
     def _path_impl(self, data, y, *, path_len, eval_fn, extra_lams, verbose, screen,
                    kkt_tol, max_kkt_rounds, carry_working_set, violation_budget,
@@ -571,13 +598,6 @@ class LogisticL1:
 
             def to_output(beta_work):
                 return design._work_to_original(beta_work, tile=opts.tile)
-
-            # at beta = 0 the NLL residual is exactly -y/2, so the screen at
-            # zero margins is lambda_max; the buckets' row bound rides the
-            # same read
-            lmax, max_row = engine.host_read(torch.stack(
-                [grad_abs(m).max().double(), st.max_row.double()]))
-            design._check_rows(st, int(max_row))
         else:
             p_cap = p
 
@@ -594,8 +614,17 @@ class LogisticL1:
                     return res, beta_full, m_full
                 return restricted_solve
 
-            lmax = engine.host_read(lambda_max_design(design, y))
-        lams = _lambda_grid(float(lmax), path_len, extra_lams)
+        with obs_trace.span("lambda_grid"):
+            if slab_mesh:
+                # at beta = 0 the NLL residual is exactly -y/2, so the screen
+                # at zero margins is lambda_max; the buckets' row bound rides
+                # the same read
+                lmax, max_row = engine.host_read(torch.stack(
+                    [grad_abs(m).max().double(), st.max_row.double()]))
+                design._check_rows(st, int(max_row))
+            else:
+                lmax = engine.host_read(lambda_max_design(design, y))
+            lams = _lambda_grid(float(lmax), path_len, extra_lams)
         beta = torch.zeros(p_cap, dtype=torch.float32, device=y.device)
 
         def empty_result(beta_cur):
@@ -648,66 +677,70 @@ class LogisticL1:
 
         for pt_idx in range(start, len(lams)):
             lam = lams[pt_idx]
-            if screen:
-                res, beta_new, m_new, info, mask = solve_point(lam, carry_mask, strat)
-                pt_status = int(res.status)
-                # the degradation ladder: a tripped solve never feeds the
-                # warm-start chain. (1) drop the carried working set and
-                # re-warm-start from the last certified point; (2) blocked
-                # cycles fall back to the sequential chain; (3) skip and mark,
-                # keeping the last certified state
-                if pt_status:
-                    res, beta_new, m_new, info, mask = solve_point(lam, None, strat)
+            with obs_trace.span("lambda_point", index=pt_idx, lam=float(lam)) as pt_sp:
+                if screen:
+                    res, beta_new, m_new, info, mask = solve_point(lam, carry_mask, strat)
                     pt_status = int(res.status)
-                    info["degraded"] = "rewarm"
-                if pt_status and opts.cycle_mode == "blocked":
-                    seq_strat = resolve(design, replace(opts, cycle_mode="sequential"),
-                                        densify=densify)
-                    res, beta_new, m_new, info, mask = solve_point(lam, None, seq_strat)
-                    pt_status = int(res.status)
-                    info["degraded"] = "sequential"
-                if pt_status:
-                    beta_new, m_new, mask = beta, m, carry_mask
-                    info = {**info, "skipped": True, "degraded": "skipped"}
-                beta, m = beta_new, m_new
-                if carry_working_set and not pt_status:
-                    carry_mask = mask
-            else:
-                res = _solve(design, y, lam, strat, beta0=beta)
-                pt_status = int(res.status)
-                if pt_status:
-                    # the unscreened loop: mark the point, hold the chain
-                    info = {"skipped": True, "degraded": "skipped"}
+                    # the degradation ladder: a tripped solve never feeds the
+                    # warm-start chain. (1) drop the carried working set and
+                    # re-warm-start from the last certified point; (2) blocked
+                    # cycles fall back to the sequential chain; (3) skip and mark,
+                    # keeping the last certified state
+                    if pt_status:
+                        res, beta_new, m_new, info, mask = solve_point(lam, None, strat)
+                        pt_status = int(res.status)
+                        info["degraded"] = "rewarm"
+                    if pt_status and opts.cycle_mode == "blocked":
+                        seq_strat = resolve(design, replace(opts, cycle_mode="sequential"),
+                                            densify=densify)
+                        res, beta_new, m_new, info, mask = solve_point(lam, None, seq_strat)
+                        pt_status = int(res.status)
+                        info["degraded"] = "sequential"
+                    if pt_status:
+                        beta_new, m_new, mask = beta, m, carry_mask
+                        info = {**info, "skipped": True, "degraded": "skipped"}
+                    beta, m = beta_new, m_new
+                    if carry_working_set and not pt_status:
+                        carry_mask = mask
                 else:
-                    beta = res.beta
-                    m = (res.m if getattr(res, "m", None) is not None
-                         else design.margins(beta))
-                    info = {}
-            lam_prev = lam
-            beta_out = to_output(beta) if to_output is not None else beta
-            # the point's one read: nnz, and f where the solve did not give it
-            nnz_dev = (beta_out.abs() > 0).sum().double()
-            if res.n_iters and not pt_status:
-                nnz, f = int(engine.host_read(nnz_dev)), float(res.f)
-            else:
-                nnz_h, f_h = engine.host_read(torch.stack(
-                    [nnz_dev, objective(m, y, beta, lam).double()]))
-                nnz, f = int(nnz_h), float(f_h)
-            metrics = eval_fn(beta_out) if eval_fn else {}
-            points.append(PathPoint(lam=lam, nnz=nnz, f=f,
-                                    n_iters=0 if pt_status else res.n_iters,
-                                    beta=beta_out, metrics=metrics, screen=info,
-                                    status=pt_status))
-            host_betas.append(None)
-            if verbose:
-                print(f"lambda={lam:10.4f} nnz={nnz:6d} f={f:12.4f} "
-                      f"iters={points[-1].n_iters:3d} {info} {metrics}")
-            if checkpoint_every is not None and (pt_idx + 1 - start) % checkpoint_every == 0:
-                _save_progress(progress, pt_idx, lams, lam_prev, beta, m, carry_mask,
-                               points, host_betas, p, int(p_cap))
-            # the fault hook: a simulated process death between points, after
-            # the checkpoint landed (as a real mid-path kill would find it)
-            maybe_kill(pt_idx + 1)
+                    res = _solve(design, y, lam, strat, beta0=beta)
+                    pt_status = int(res.status)
+                    if pt_status:
+                        # the unscreened loop: mark the point, hold the chain
+                        info = {"skipped": True, "degraded": "skipped"}
+                    else:
+                        beta = res.beta
+                        m = (res.m if getattr(res, "m", None) is not None
+                             else design.margins(beta))
+                        info = {}
+                lam_prev = lam
+                with obs_trace.span("point_finish"):
+                    beta_out = to_output(beta) if to_output is not None else beta
+                    # the point's one read: nnz, and f where the solve did not give it
+                    nnz_dev = (beta_out.abs() > 0).sum().double()
+                    if res.n_iters and not pt_status:
+                        nnz, f = int(engine.host_read(nnz_dev)), float(res.f)
+                    else:
+                        nnz_h, f_h = engine.host_read(torch.stack(
+                            [nnz_dev, objective(m, y, beta, lam).double()]))
+                        nnz, f = int(nnz_h), float(f_h)
+                    metrics = eval_fn(beta_out) if eval_fn else {}
+                    points.append(PathPoint(lam=lam, nnz=nnz, f=f,
+                                            n_iters=0 if pt_status else res.n_iters,
+                                            beta=beta_out, metrics=metrics, screen=info,
+                                            status=pt_status))
+                    host_betas.append(None)
+                    if verbose:
+                        print(f"lambda={lam:10.4f} nnz={nnz:6d} f={f:12.4f} "
+                              f"iters={points[-1].n_iters:3d} {info} {metrics}")
+                    if (checkpoint_every is not None
+                            and (pt_idx + 1 - start) % checkpoint_every == 0):
+                        _save_progress(progress, pt_idx, lams, lam_prev, beta, m, carry_mask,
+                                       points, host_betas, p, int(p_cap))
+                pt_sp.set(nnz=nnz, f=f, status=pt_status)
+                # the fault hook: a simulated process death between points, after
+                # the checkpoint landed (as a real mid-path kill would find it)
+                maybe_kill(pt_idx + 1)
         self.beta_ = points[-1].beta if points else None
         self.lam_ = lams[-1] if lams else None
         return PathResult.from_points(points)
@@ -728,6 +761,7 @@ def make_design_eval(test_data, y_test, *, mesh=None, tile: int = 128,
 
     dev = resolve_device(device)
     design = as_design(test_data, n=int(len(y_test)), mesh=mesh, tile=tile).to(dev)
+    # allow[torch-host-sync]: the test labels cross once, when the eval is built, not per point
     y_host = (y_test.detach().cpu().numpy() if torch.is_tensor(y_test)
               else np.asarray(y_test))
 

@@ -172,6 +172,7 @@ def _jsonable(d: Optional[dict]) -> dict:
     out = {}
     for k, v in (d or {}).items():
         if torch.is_tensor(v) and v.dim() == 0:
+            # allow[torch-host-sync]: JSON coercion of a saved path's telemetry, after the path, not on a solve's path
             v = v.item()
         if isinstance(v, np.integer):
             out[k] = int(v)

@@ -74,10 +74,10 @@ def _host_array(leaf) -> Tuple[np.ndarray, str]:
     if not torch.is_tensor(leaf):
         arr = np.asarray(leaf)
         return arr, str(arr.dtype)
-    t = leaf.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.float().numpy(), "bfloat16"
-    return t.numpy(), str(t.numpy().dtype)
+    bf16 = leaf.dtype == torch.bfloat16
+    # allow[torch-host-sync]: a checkpoint's save copies its leaves to the host once; no solve reads through it
+    arr = (leaf.detach().float() if bf16 else leaf.detach()).cpu().numpy()
+    return arr, "bfloat16" if bf16 else str(arr.dtype)
 
 
 _tmp_seq = itertools.count()

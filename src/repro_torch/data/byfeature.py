@@ -55,6 +55,7 @@ class ByFeature:
 
 
 def _host(t) -> np.ndarray:
+    # allow[torch-host-sync]: layout preparation on the host before any solve (Table-1 by-feature build)
     return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 

@@ -37,6 +37,12 @@ high-water mark for the managed buckets: copies in flight and unmanaged
 operands (restricted-solve working sets) can briefly exceed it.
 :func:`put_slab` is the door for slab placements outside the managed
 buckets (serve request slabs).
+
+Observability (``repro_torch.obs``): each miss's eviction and put run in
+a ``bucket_stream(bucket=)`` span, and :meth:`BucketResidencyManager.
+register_metrics` mirrors :meth:`~BucketResidencyManager.stats` onto a
+metrics registry as a lazy, read-only callback; the counters stay the
+source of truth.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.obs import registry as obs_registry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience.inject import InjectedFault, take_prefetch_failure
 from repro_torch.resilience.retry import retry_call
 
@@ -127,6 +135,7 @@ class BucketResidencyManager:
             card = self.device.type == "cuda"
             # host copies, pinned once, so that every later copy is
             # asynchronous; a side stream carries them
+            # allow[torch-host-sync]: the streamed buckets' pinned host copies, made once at construction, before any pass
             self._host = tuple(tuple(self._pin(t.cpu()) if card else t.cpu() for t in (r, v))
                                for r, v, _ in buckets)
             if card:
@@ -191,7 +200,14 @@ class BucketResidencyManager:
 
     def _fetch(self, i: int):
         """Bucket ``i``'s entry, streamed in (evicting LRU cold buckets)
-        on a miss; counts the access."""
+        on a miss; counts the access.
+
+        A miss's eviction and put run in a ``bucket_stream(bucket=i)`` span
+        (the reference's). On a card the put only issues an asynchronous
+        copy on the side stream, so the span times the host's part of a
+        miss (pinning, issuing the copy, evicting); the copy itself runs
+        behind the work and is timed with CUDA events (``chip_smoke.py``
+        phase 8a)."""
         if not 0 <= i < self.n_buckets:
             raise IndexError(f"bucket {i} out of range [0, {self.n_buckets})")
         entry = self._resident.get(i)
@@ -200,8 +216,9 @@ class BucketResidencyManager:
             self.counters.hits += 1
             return entry
         self.counters.misses += 1
-        self._ensure_room(self.bucket_bytes[i], keep={i})
-        entry = self._put(i, *self._host[i])
+        with obs_trace.span("bucket_stream", bucket=i):
+            self._ensure_room(self.bucket_bytes[i], keep={i})
+            entry = self._put(i, *self._host[i])
         self._admit(i, entry)
         return entry
 
@@ -245,6 +262,18 @@ class BucketResidencyManager:
         finally:
             self._pinned = set()
             self._iterating = False
+
+    # -- telemetry ---------------------------------------------------------
+
+    def register_metrics(self, registry=None, *, name: str = "residency") -> None:
+        """Mirror :meth:`stats` onto a ``repro_torch.obs`` metrics registry
+        (``registry``, or the active one) as a lazy read-only callback under
+        ``name``; the counters stay the single source of truth. No-op when
+        no registry is given or active."""
+        reg = obs_registry.get_registry() if registry is None else registry
+        if reg is None:
+            return
+        reg.register_callback(name, self.stats)
 
     # -- introspection -----------------------------------------------------
 

@@ -63,9 +63,20 @@ def _on_cuda(*tensors) -> bool:
     return dev.type == "cuda"
 
 
-def logistic_stats(m, y):
+def _check_block(name: str, value) -> None:
+    if isinstance(value, bool) or not isinstance(value, int) or value < 1:
+        raise ValueError(f"{name} must be a positive int, got {value!r}")
+
+
+def logistic_stats(m, y, *, block: int = 4096):
     """Fused (w, z, nll) from margins -- one pass over the examples axis;
-    the dispatch point the outer iteration uses (core/engine.py)."""
+    the dispatch point the outer iteration uses (core/engine.py).
+
+    ``block`` is the reference's TPU block over the examples axis: it is
+    accepted and checked (a positive int) so that a call written for the
+    reference runs here, but it does not steer the CUDA kernel, which
+    picks its own grid; the result is the same for every ``block``."""
+    _check_block("block", block)
     if _on_cuda(m, y):
         return _logistic_stats.logistic_stats_kernel(m, y)
     return ref.logistic_stats_ref(m, y)
@@ -222,9 +233,16 @@ def slab_corr(rows, vals, v):
 # attention (the LM zoo)
 # ---------------------------------------------------------------------------
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128):
     """Blocked online-softmax attention (forward): q (B, S, H, D), k/v
-    (B, S, Hk, D) with H a multiple of Hk -> (B, S, H, D) in q's type."""
+    (B, S, Hk, D) with H a multiple of Hk -> (B, S, H, D) in q's type.
+
+    ``block_q`` / ``block_k`` are the reference's TPU tile sizes: accepted
+    and checked (positive ints), but the Hopper kernel picks its own tiles
+    (``csrc/flash_attention.cu``), so they do not change the result."""
+    _check_block("block_q", block_q)
+    _check_block("block_k", block_k)
     if _on_cuda(q, k, v):
         return _flash_attention.flash_attention_kernel(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -148,6 +148,7 @@ def slab_spmv_kernel(order: SlabOrder, vals, d, out, *, n_loc: int, sign: float,
     return out
 
 
+# allow[torch-kernel-plain]: a mode of slab_spmv's kernel, whose plain version is ref.slab_path_spmv_scatter
 def slab_path_spmv_kernel(order: SlabOrder, vals, lam_idx, betas, out, *, n_loc: int):
     """out (..., n_out) += X_F beta_{lam_idx[i]} on the card, in place: the
     slab (..., T, K) by its row-sorted ``order`` (with its values) and

@@ -6,6 +6,8 @@ the counterpart of ``repro/launch/serve_glm.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve_glm --smoke --mesh 1x4
     PYTHONPATH=src python -m repro_torch.launch.serve_glm --load-path ckpt/ \
         --batch 256 --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.serve_glm --smoke --device cpu \
+        --trace /tmp/serve
 
 Fits (or loads with ``--load-path``, a ``PathResult.save`` checkpoint of
 either package) a certified regularization path, publishes it into a
@@ -18,6 +20,16 @@ second. ``--smoke`` also checks the served scores bit-equal to
 ``LogisticL1.decision_function`` at every point of the path and swaps a
 shorter path in mid-traffic. Runs on the card (``--device cuda``, the
 default, raising without one) unless ``--device cpu`` is given.
+
+``--trace PATH`` runs the launcher under ``repro_torch.obs.observe()``:
+the rounds run in a ``serve(steps=)`` span around the batcher's
+``encode`` / ``drain`` and the scorer's ``score`` spans (the store's
+``swap`` and, when a path is fitted, the path's span tree beside them),
+each scored request's submit -> score latency lands in the
+``serve.latency_s`` histogram, and the launcher prints its p50 / p95 /
+p99 and writes ``PATH.trace.json`` (Perfetto), ``PATH.events.jsonl`` and
+``PATH.summary.json`` (``python -m repro_torch.obs.report
+PATH.summary.json`` renders it).
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ from repro_torch.configs.base import GLMConfig
 from repro_torch.data.synthetic import make_glm_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.obs import observe
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import PathScorer, PathStore, RequestBatcher
 
 
@@ -51,18 +65,22 @@ def make_traffic(rng, p: int, count: int, lambdas, *, tokens_per: int = 12):
 def serve_loop(scorer, batcher, reqs, lams, *, steps: int):
     """``steps`` submit -> drain -> score rounds over the traffic. Returns
     (scores served, seconds, versions seen); each round ends at the
-    scorer's host read of its scores."""
+    scorer's host read of its scores, after which ``mark_scored`` records
+    the batch's latencies. Under an active tracer the rounds run in one
+    ``serve(steps=)`` span."""
     total, versions = 0, set()
     per = max(1, len(reqs) // steps)
     t0 = time.perf_counter()
-    for s in range(steps):
-        for r, lam in zip(reqs[s * per:(s + 1) * per], lams[s * per:(s + 1) * per]):
-            batcher.submit(r, lam)
-        batch, blams = batcher.drain()
-        scores, ver = scorer.score(batch, blams)
-        batcher.mark_scored()
-        total += len(scores)
-        versions.add(ver)
+    with obs_trace.span("serve", steps=steps):
+        for s in range(steps):
+            for r, lam in zip(reqs[s * per:(s + 1) * per], lams[s * per:(s + 1) * per]):
+                batcher.submit(r, lam)
+            batch, blams = batcher.drain()
+            scores, ver = scorer.score(batch, blams)
+            batcher.mark_scored()
+            total += len(scores)
+            versions.add(ver)
+    # allow[torch-bench-timing]: scorer.score returns host numpy through a counted read, so every batch is complete before the clock stops
     return total, time.perf_counter() - t0, versions
 
 
@@ -80,6 +98,7 @@ def smoke_check(store, scorer, batch, n_live: int, path) -> None:
     for lam_i in range(len(path)):
         beta = torch.nn.functional.pad(path.betas[lam_i].to(dev),
                                        (0, batch.p_pad - path.betas.shape[1]))
+        # allow[torch-host-sync]: the smoke check's reference scores (decision_function), an oracle beside the served read
         ref = est.decision_function(design, beta=beta).cpu().numpy()[:n_live]
         got, _ = scorer.score(batch, np.full(n_live, path.lambdas[lam_i]))
         if not np.array_equal(got, ref):
@@ -119,12 +138,35 @@ def main(argv=None):
                     help="serve a PathResult.save checkpoint instead of fitting")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="run under repro_torch.obs and write PATH.trace.json (Perfetto), "
+                         "PATH.events.jsonl and PATH.summary.json with the span totals and "
+                         "the submit -> score latency histogram")
     args = ap.parse_args(argv)
     if args.smoke:
         args.n, args.p, args.path_len = min(args.n, 256), min(args.p, 128), \
             min(args.path_len, 4)
     dev = resolve_device(args.device)
     mesh = parse_mesh(args.mesh, dev)
+    if args.trace is None:
+        _run(args, dev, mesh)
+        return
+    with observe() as obs:
+        _run(args, dev, mesh)
+    summary = obs.summary()
+    hist = summary.get("histograms", {}).get("serve.latency_s")
+    if hist and hist["count"]:
+        print(f"# submit->score latency ({hist['count']} requests): "
+              f"p50 {hist['p50'] * 1e3:.2f}ms / p95 {hist['p95'] * 1e3:.2f}ms / "
+              f"p99 {hist['p99'] * 1e3:.2f}ms")
+    files = obs.export(args.trace)
+    print(f"# trace: {files['trace']} (open in Perfetto) | summary: {files['summary']} "
+          f"(python -m repro_torch.obs.report {files['summary']})")
+
+
+def _run(args, dev, mesh) -> None:
+    """Fit or load the path, serve the traffic, and (``--smoke``) check
+    the served scores and a hot swap."""
 
     if args.load_path:
         path = PathResult.load(args.load_path, device=dev)
@@ -135,6 +177,7 @@ def main(argv=None):
         ds = make_glm_dataset(cfg, np.random.default_rng(0), device=dev)
         path = LogisticL1(mesh=mesh, device=dev).path(ds.X_train, ds.y_train,
                                                       path_len=args.path_len)
+        # allow[torch-host-sync]: PathResult.nnz is a numpy array
         print(f"# fitted path: L={len(path)} p={args.p} nnz={path.nnz.tolist()}")
     if args.save_path:
         path.save(args.save_path)

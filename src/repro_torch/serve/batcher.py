@@ -18,9 +18,13 @@ drainer), and each request carries an optional deadline on an injectable
 monotonic clock; expired requests are shed at drain rather than scored
 late. Rejections and sheds are counted in :attr:`RequestBatcher.stats`.
 The submit timestamps of each drained batch wait for
-:meth:`RequestBatcher.mark_scored`, the point the serve loop's latency
-observation hangs on (its histogram and the queue gauges come with the
-port's observability).
+:meth:`RequestBatcher.mark_scored`, which observes each request's submit
+-> score latency into the ``serve.latency_s`` histogram of the active
+``repro_torch.obs`` registry. ``submit`` runs its hashing in an
+``encode`` span, ``drain`` is a ``drain`` span, both set the
+``serve.queue_depth`` gauge, and :meth:`RequestBatcher.register_metrics`
+mirrors :attr:`~RequestBatcher.stats` and the queue depth onto the
+registry read-only (the dict stays the source of truth).
 
 Lambdas stay raw floats until scoring: ``PathScorer`` resolves them
 against the snapshot it scores with.
@@ -33,6 +37,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.obs import registry as obs_registry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.ingest import (InvalidRequest, PackedBatch, Request,
                                       encode_request, pack_requests)
 
@@ -97,6 +103,7 @@ class RequestBatcher:
                        "rejected_invalid": 0, "shed_expired": 0, "drained": 0}
         # submit times of the last drain, until the loop marks it scored
         self._last_drained_ts: List[float] = []
+        self.register_metrics()
 
     def submit(self, request: Request, lam: float, *,
                deadline_s: Optional[float] = None) -> None:
@@ -108,7 +115,8 @@ class RequestBatcher:
         on garbage input and :class:`Overloaded` when the queue is at
         ``max_pending``, each counted first."""
         try:
-            enc = encode_request(request, self.p)
+            with obs_trace.span("encode"):
+                enc = encode_request(request, self.p)
             idx = enc[0]
             if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= self.p):
                 raise InvalidRequest(f"hashed index out of range [0, {self.p})")
@@ -127,6 +135,8 @@ class RequestBatcher:
                     f"not keeping up -- shed and retry with backoff")
             self._pending.append((enc, float(lam), expiry, now))
             self._stats["submitted"] += 1
+            depth = len(self._pending)
+        obs_registry.gauge("serve.queue_depth").set(depth)
 
     def __len__(self) -> int:
         with self._lock:
@@ -145,25 +155,52 @@ class RequestBatcher:
         Expired requests are shed first (counted, never packed). Returns
         ``(batch, lams)``; ``lams[i]`` belongs to batch row i. An empty
         queue drains to an all-padding batch (``n_live == 0``)."""
-        now = self.clock()
-        with self._lock:
-            live = [e for e in self._pending if e[2] is None or e[2] > now]
-            self._stats["shed_expired"] += len(self._pending) - len(live)
-            take, self._pending = live[:self.max_batch], live[self.max_batch:]
-            self._stats["drained"] += len(take)
-            self._last_drained_ts = [e[3] for e in take]
-        encoded = [e[0] for e in take]
-        lams = np.asarray([e[1] for e in take], np.float64)
-        cap = batch_capacity(max(len(encoded), 1), b_max=self.max_batch)
-        cap += (-cap) % max(self.dp, 1)
-        batch = pack_requests(encoded, self.p, batch_cap=cap, dp=self.dp,
-                              pad_p_to=self.pad_p_to, k_min=self.k_min)
+        with obs_trace.span("drain") as sp:
+            now = self.clock()
+            with self._lock:
+                live = [e for e in self._pending if e[2] is None or e[2] > now]
+                self._stats["shed_expired"] += len(self._pending) - len(live)
+                take, self._pending = live[:self.max_batch], live[self.max_batch:]
+                self._stats["drained"] += len(take)
+                self._last_drained_ts = [e[3] for e in take]
+                depth = len(self._pending)
+            obs_registry.gauge("serve.queue_depth").set(depth)
+            encoded = [e[0] for e in take]
+            lams = np.asarray([e[1] for e in take], np.float64)
+            cap = batch_capacity(max(len(encoded), 1), b_max=self.max_batch)
+            cap += (-cap) % max(self.dp, 1)
+            batch = pack_requests(encoded, self.p, batch_cap=cap, dp=self.dp,
+                                  pad_p_to=self.pad_p_to, k_min=self.k_min)
+            sp.set(drained=len(take))
         return batch, lams
 
     def mark_scored(self) -> int:
         """Mark the last drained batch scored (the serve loop calls this
-        right after the scorer returns host scores). Returns how many
-        requests it marked; a second call without a new drain marks 0."""
+        right after the scorer returns host scores): each of its requests'
+        submit -> score latency goes into the ``serve.latency_s`` histogram
+        of the active metrics registry (one clock read per batch; with no
+        registry, nothing is recorded). Returns how many requests it
+        marked; a second call without a new drain marks 0."""
         with self._lock:
             ts, self._last_drained_ts = self._last_drained_ts, []
+        if not ts:
+            return 0
+        hist = obs_registry.histogram("serve.latency_s")
+        now = self.clock()
+        for t in ts:
+            hist.observe(now - t)
         return len(ts)
+
+    def register_metrics(self, registry=None) -> None:
+        """Mirror :attr:`stats` and the live queue depth onto a
+        ``repro_torch.obs`` metrics registry (``registry``, or the active
+        one) as lazy read-only callbacks (``serve.batcher``,
+        ``serve.queue``); ``_stats`` stays the source of truth, bit for bit
+        the same with a registry or without. Called at construction (a
+        no-op with no registry active); call again to attach to a registry
+        activated later."""
+        reg = obs_registry.get_registry() if registry is None else registry
+        if reg is None:
+            return
+        reg.register_callback("serve.batcher", lambda: self.stats)
+        reg.register_callback("serve.queue", lambda: {"depth": len(self)})

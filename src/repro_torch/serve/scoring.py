@@ -31,6 +31,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.data.residency import put_slab
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience.inject import serve_delay
 from repro_torch.serve.ingest import PackedBatch
 from repro_torch.serve.store import PathStore, StoreSnapshot
@@ -95,7 +96,16 @@ class PathScorer:
         loop's one read per batch), so they are checked first. A snapshot
         that gives NaN/Inf is quarantined -- the store pins back to its
         last-good snapshot -- and the batch is rescored; only when no
-        snapshot is left does :class:`NonFiniteScores` escape."""
+        snapshot is left does :class:`NonFiniteScores` escape.
+
+        The ``score(rows=n_live)`` span closes at that read, so tracing
+        adds none; it carries the version scored with."""
+        with obs_trace.span("score", rows=int(batch.n_live)) as sp:
+            scores, version = self._score(batch, lams)
+            sp.set(version=version)
+            return scores, version
+
+    def _score(self, batch: PackedBatch, lams) -> Tuple[np.ndarray, int]:
         lams = np.asarray(lams, np.float64).reshape(-1)
         if lams.shape[0] != batch.n_live:
             raise ValueError(f"{lams.shape[0]} lambdas for {batch.n_live} requests")

@@ -26,6 +26,7 @@ import torch
 from repro_torch.api.types import PathResult
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.obs import registry as obs_registry
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience.inject import InjectedFault, take_load_failure, take_swap_failure
 from repro_torch.resilience.retry import retry_call
 
@@ -125,23 +126,26 @@ class PathStore:
                           base_delay_s=0.01)
 
     def _publish(self, result: PathResult, p: int) -> StoreSnapshot:
-        """One build-then-flip attempt (the retried unit of :meth:`swap`)."""
-        if take_swap_failure():
-            raise InjectedFault("injected PathStore.swap failure")
-        src = torch.as_tensor(result.betas, dtype=torch.float32)
-        # a stack of the store's own, padded to the alignment
-        betas = torch.zeros(src.shape[0], p + (-p) % self.pad_p_to,
-                            dtype=torch.float32, device=self.device)
-        betas[:, :p].copy_(src)
-        if self.device.type == "cuda":
-            # complete before publishing: scorers may run on other streams
-            torch.cuda.current_stream(self.device).synchronize()
-        self._version += 1
-        new = StoreSnapshot(version=self._version,
-                            lambdas=np.asarray(result.lambdas, np.float64),
-                            betas=betas, p=p)
-        self._prev = self._snap   # last-good, for quarantine()
-        self._snap = new          # the publish
+        """One build-then-flip attempt (the retried unit of :meth:`swap`).
+        The ``swap(points=)`` span closes at the stream synchronisation
+        that completes the stack before the flip: tracing adds no sync."""
+        with obs_trace.span("swap", points=len(result)):
+            if take_swap_failure():
+                raise InjectedFault("injected PathStore.swap failure")
+            src = torch.as_tensor(result.betas, dtype=torch.float32)
+            # a stack of the store's own, padded to the alignment
+            betas = torch.zeros(src.shape[0], p + (-p) % self.pad_p_to,
+                                dtype=torch.float32, device=self.device)
+            betas[:, :p].copy_(src)
+            if self.device.type == "cuda":
+                # complete before publishing: scorers may run on other streams
+                torch.cuda.current_stream(self.device).synchronize()
+            self._version += 1
+            new = StoreSnapshot(version=self._version,
+                                lambdas=np.asarray(result.lambdas, np.float64),
+                                betas=betas, p=p)
+            self._prev = self._snap   # last-good, for quarantine()
+            self._snap = new          # the publish
         obs_registry.counter("serve.swaps").inc()
         return new
 

@@ -49,11 +49,14 @@ def metrics_from_scores(scores, labels) -> dict:
 
 def glm_eval_fn(X_test, y_test):
     """eval_fn for the regularization path: test AUPRC, accuracy and log
-    loss from a host-resident (numpy) test matrix."""
+    loss from a host-resident (numpy) test matrix. A tensor beta crosses
+    to the host in one counted read (``core.engine.host_array``)."""
     X = np.asarray(X_test, np.float32)
 
     def fn(beta):
-        b = beta.detach().cpu().numpy() if hasattr(beta, "detach") else np.asarray(beta)
+        from repro_torch.core import engine
+
+        b = engine.host_array(beta.detach()) if hasattr(beta, "detach") else np.asarray(beta)
         return metrics_from_scores(X @ b, y_test)
 
     return fn

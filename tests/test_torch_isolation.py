@@ -92,3 +92,30 @@ def test_entry_points_raise_without_a_card(entry):
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+EXAMPLE = ROOT / "examples" / "torch_quickstart.py"
+
+
+def test_the_walk_covers_analysis_and_the_example():
+    """The port's lint and sanitizers copy the reference's semantics and
+    are the likeliest to import ``repro.analysis`` by habit; the port's
+    quickstart sits outside the package. Both are checked, and importing
+    the lint loads neither JAX nor the reference."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    for name in ("analysis/__init__.py", "analysis/__main__.py", "analysis/context.py",
+                 "analysis/findings.py", "analysis/runner.py", "analysis/sanitize.py",
+                 "analysis/rules/__init__.py", "analysis/rules/host_sync.py",
+                 "analysis/rules/metric_discipline.py", "analysis/rules/bench_timing.py",
+                 "analysis/rules/kernel_plain.py"):
+        assert name in checked, name
+    bad = [(root, line) for root, line in _imported_roots(EXAMPLE) if root in FORBIDDEN]
+    assert not bad, f"examples/torch_quickstart.py imports {bad}"
+    code = ("import sys, repro_torch.analysis, repro_torch.analysis.sanitize\n"
+            "import repro_torch.analysis.rules\n"
+            "bad = [m for m in ('jax', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]

@@ -2,13 +2,18 @@
 (``repro_torch.obs``) held to the reference's behaviour: each case of the
 reference's own registry, tracer and export tests (``tests/test_obs.py``)
 runs on both packages' ``obs`` modules (the ``obs`` fixture), so the port
-answers every case as ``repro.obs`` does. Stdlib only; no solver runs."""
+answers every case as ``repro.obs`` does. The two solver cases of the
+reference's file (a traced tiny path whose phases add up and equals an
+untraced one, and the batcher's stats with and without a registry) run
+on both packages' solvers and serve layers at small sizes."""
 import importlib
 import json
 import threading
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
+import torch
 
 
 @pytest.fixture(params=["repro", "repro_torch"])
@@ -293,3 +298,92 @@ def test_the_two_packages_summarize_alike():
     from repro.obs.report import render_summary as j_render
     from repro_torch.obs.report import render_summary as t_render
     assert j_render(port) == t_render(ref)
+
+
+# ---------------------------------------------------------------------------
+# the reference's two solver cases, on both packages
+# ---------------------------------------------------------------------------
+
+def _tiny_problem():
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(60, 24)).astype(np.float32)
+    y = (rng.random(60) < 0.5).astype(np.float32)
+    return X, y
+
+
+def _tiny_path(pkg):
+    """The reference's tiny dense path in package ``pkg``: returns a
+    callable running it (betas as numpy) and a host-read counter."""
+    X, y = _tiny_problem()
+    if pkg == "repro":
+        import jax.numpy as jnp
+
+        from repro.api import DenseDesign, LogisticL1
+        from repro.core.dglmnet import DGLMNETOptions
+
+        est = LogisticL1(opts=DGLMNETOptions(num_blocks=4, tile=8, max_iters=5))
+        design, yv = DenseDesign(jnp.asarray(X)), jnp.asarray(y)
+        return lambda: est.path(design, yv, path_len=3), lambda p: np.asarray(p.betas), None
+    from repro_torch.api import DenseDesign, LogisticL1
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+
+    est = LogisticL1(DGLMNETOptions(num_blocks=4, tile=8, max_iters=5), device="cpu")
+    design, yv = DenseDesign(torch.from_numpy(X)), torch.from_numpy(y)
+    return lambda: est.path(design, yv, path_len=3), lambda p: p.betas.numpy(), engine
+
+
+@pytest.mark.parametrize("pkg", ["repro", "repro_torch"])
+def test_traced_tiny_path_phases_add_up(pkg):
+    run, betas, engine = _tiny_path(pkg)
+    observe = importlib.import_module(f"{pkg}.obs").observe
+    if engine is not None:
+        engine.host_syncs = 0
+    with observe() as obs:
+        path = run()
+    traced_reads = engine.host_syncs if engine is not None else None
+    s = obs.summary()
+    root = s["roots"][0]
+    assert root["name"] == "path" and root["args"]["path_len"] == 3
+    assert root["args"]["points"] == len(path) == 3
+    assert len(s["per_lambda"]) == 3
+    for row in s["per_lambda"]:
+        assert {"index", "lam", "nnz", "status", "dur_s"} <= set(row)
+    # the direct children's totals account for the root's wall to within 5%
+    covered = sum(s["phases"]["path"].values())
+    assert covered <= root["dur_s"] * 1.0001
+    assert covered >= root["dur_s"] * 0.95, (covered, root["dur_s"])
+    # an untraced rerun is bit-identical, and (the port) reads the device
+    # exactly as often
+    if engine is not None:
+        engine.host_syncs = 0
+    path2 = run()
+    assert np.array_equal(betas(path), betas(path2))
+    if engine is not None:
+        assert engine.host_syncs == traced_reads
+
+
+def _drive_batcher(batcher, overloaded):
+    for i in range(12):
+        try:
+            batcher.submit({f"tok{i}": 1.0}, 0.5)
+        except overloaded:
+            pass
+    batcher.drain()
+    return dict(batcher.stats)
+
+
+@pytest.mark.parametrize("pkg", ["repro", "repro_torch"])
+def test_batcher_stats_bit_identical_with_and_without_obs(pkg):
+    serve = importlib.import_module(f"{pkg}.serve")
+    observe = importlib.import_module(f"{pkg}.obs").observe
+
+    def build():
+        return serve.RequestBatcher(16, max_batch=8, max_pending=8)
+
+    stats_off = _drive_batcher(build(), serve.Overloaded)
+    with observe() as obs:
+        stats_on = _drive_batcher(build(), serve.Overloaded)
+        mirrored = obs.registry.collect()["callbacks"]["serve.batcher"]
+    assert stats_on == stats_off                 # the dict is untouched
+    assert mirrored == stats_on                  # the registry mirrors it
