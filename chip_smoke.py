@@ -189,19 +189,40 @@ of which fails the run with a non-zero exit:
 12. LM agreement -- tinyllama's float32 ``smoke()`` model with a 128-token
    prompt on the card against the same model on the CPU: prefill logits
    within 1e-4, 8 greedy tokens equal;
+12a. paper -- the paper's comparison (section 4.3): ``tg_pass`` against
+   its plain version on the card at (M=16, 2048 steps, p=2000; the
+   epsilon cell's rows) and (M=4, 1000 steps, p=4099, theta 0.05), atol =
+   rtol = 1e-5, two launches bit-equal; a truncated-gradient fit (8192 x
+   2000, 16 machines, 3 passes) on the card against the CPU's (rtol 1e-4,
+   atol 1e-6) and, shuffled, with no synchronising call under sync debug
+   mode; Table 3 on the epsilon cell at full width
+   (``repro_torch.paper.table3_timing``: iterations, ms per iteration,
+   the line search's share by CUDA events, TG ms per pass); Figure 1 on
+   it (the 10-point d-GLMNET path against TG at 3 lambdas x 3 learning
+   rates x 8 passes, both scored on the 80,000 test rows by one device
+   eval: every point OK, every snapshot finite, TG's last-pass nnz at
+   lambda_max/16 at most its nnz at /256 for every rate; the best AUPRC
+   of each side and ``dglmnet_wins`` printed, not gated); the ablation at
+   its own shape (n = 4096, p = 256, 36 fits, each objective finite);
+   the sparse probe on phase 11's tinyllama weights (2048 prompts of 128
+   tokens with marker token 7, features in chunks of 256 through the
+   flash kernel, exactly 22 launches per chunk, finite; an 8-point
+   probe path on a 4/5 split, every point OK, nnz and AUPRC printed);
 13. times -- each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
    ``slab_spmv`` also without its fused dbeta update and at the margins'
    shape (16 blocks of 65,536 features), beside its byte bound, and its
    path mode at both serve shapes (no single PyTorch call gathers a
-   per-row coefficient, so its library column is null);
+   per-row coefficient, so its library column is null); ``tg_pass`` over
+   one epsilon pass (16 x 20,000 steps; no library call);
 14. profile -- device time by kernel (torch.profiler) for one dense fit
-   per cycle mode, a 3-iteration sparse fit per cycle mode (with device
-   launches per tile step), the path's first three points per cycle
-   mode (busy and idle time, and its screen passes, gathers and layout
-   sorts timed apart with CUDA events), one LM prefill and 8 decode
-   steps after it; a profile with no device time fails the run.
+   per cycle mode, a 2-pass truncated-gradient fit, a 3-iteration sparse
+   fit per cycle mode (with device launches per tile step), the path's
+   first three points in the sequential mode (busy and idle time, and
+   its screen passes, gathers and layout sorts timed apart with CUDA
+   events), one LM prefill and 8 decode steps after it; a profile with
+   no device time fails the run.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
@@ -220,6 +241,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2349,10 +2371,11 @@ LM_AGREE_TOL = 1e-4
 
 def flash_shapes():
     """(label, B, S, H, Hk, D): the serving cell's attention, one Hk == H
-    shape and the reference's sweep shapes (tests/test_kernels.py)."""
+    shape, the reference's sweep shapes (tests/test_kernels.py) and the
+    sparse probe's chunk (phase 12a)."""
     return [("cell", LM_BATCH, LM_PROMPT, 32, 4, 64), ("Hk == H", 2, 1024, 16, 16, 64),
             ("sweep", 1, 256, 2, 2, 64), ("sweep", 2, 512, 4, 4, 32),
-            ("sweep", 1, 128, 1, 1, 128)]
+            ("sweep", 1, 128, 1, 1, 128), ("probe", PROBE_CHUNK, PROBE_LEN, 32, 4, 64)]
 
 
 def phase_lm_kernels(torch, gen):
@@ -2518,6 +2541,231 @@ def phase_lm_agree(torch):
     check(torch.equal(tc, tp), f"card vs cpu greedy tokens differ: {tc.tolist()} vs {tp.tolist()}")
 
 
+# ---------------------------------------------------------------------------
+# the paper's comparison: truncated gradient, Table 3, Figure 1, the
+# ablation and the sparse probe, on the epsilon cell and tinyllama
+# ---------------------------------------------------------------------------
+
+#: tg_pass against its plain version: (machines, steps, p, theta); the
+#: first is the epsilon cell's (its first 16 x 2048 rows), the second wide
+#: and with a finite theta, so that the truncation's where bites
+TG_SHAPES = ((16, 2048, 2000, float("inf")), (4, 1000, 4099, 0.05))
+#: the TG fit on the card against the CPU's: rows of the epsilon cell, passes
+TG_AGREE_ROWS, TG_AGREE_PASSES = 8192, 3
+PROBE_PROMPTS, PROBE_LEN, PROBE_CHUNK, PROBE_MARKER = 2048, 128, 256, 7
+PROBE_PATH_LEN = 8
+PROBE_OPTS = dict(num_blocks=4, tile=32, max_iters=40)     # examples/sparse_probe.py
+
+
+def tg_checks(torch, ds, gravity: float):
+    """tg_pass against tg_pass_ref on the card at TG_SHAPES (atol = rtol =
+    1e-5; two launches bit-equal). The cell's whole pass is held to its
+    plain version in tg_time_row."""
+    from repro_torch.core.truncated_gradient import shrink as tg_shrink
+    from repro_torch.kernels import ref, tg_pass
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    eta = 0.1
+    shrink = tg_shrink(eta, gravity)
+    for M, S, p, theta in TG_SHAPES:
+        if p == ds.X_train.shape[1]:
+            Xs = ds.X_train[:M * S].view(M, S, p)
+            ys = ds.y_train[:M * S].view(M, S)
+        else:
+            Xs = torch.randn(M, S, p, generator=gen, device="cuda")
+            ys = torch.where(torch.rand(M, S, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
+        beta0 = 0.01 * torch.randn(p, generator=gen, device="cuda")
+        got = tg_pass.tg_pass_kernel(Xs, ys, beta0, eta, shrink, theta)
+        again = tg_pass.tg_pass_kernel(Xs, ys, beta0, eta, shrink, theta)
+        plain = ref.tg_pass_ref(Xs, ys, beta0, eta, shrink, theta)
+        torch.cuda.synchronize()
+        e = max_err(got, plain)
+        ok = torch.allclose(got, plain, atol=TOL, rtol=TOL)
+        same = torch.equal(got, again)
+        print(f"[paper] tg_pass M={M} steps={S} p={p} theta={theta}: max abs err {e:.3g} "
+              f"(atol = rtol = {TOL}; bit-equal to the plain version: "
+              f"{torch.equal(got, plain)}), two launches {'bit-equal' if same else 'DIFFERENT'}, "
+              f"max |beta| {float(got.abs().max()):.3g} -> {'ok' if ok and same else 'MISMATCH'}")
+        check(ok, f"tg_pass M={M} p={p} disagrees with its plain version by {e}")
+        check(same, f"tg_pass M={M} p={p}: two launches differ")
+
+
+def tg_agreement(torch, ds):
+    """A TG fit on the card against the same fit on the CPU (plain
+    versions), and no synchronising call inside a card fit."""
+    from repro_torch.core.objective import lambda_max
+    from repro_torch.core.truncated_gradient import TGOptions, truncated_gradient_fit
+
+    X, y = ds.X_train[:TG_AGREE_ROWS], ds.y_train[:TG_AGREE_ROWS]
+    lam = float(lambda_max(X, y)) / 16
+    opts = TGOptions(num_machines=16, passes=TG_AGREE_PASSES)
+    card = truncated_gradient_fit(X, y, lam, opts=opts, device="cuda")
+    t0 = time.perf_counter()
+    cpu = truncated_gradient_fit(X.cpu(), y.cpu(), lam, opts=opts, device="cpu")
+    # allow[torch-bench-timing]: times a fit on the CPU (device='cpu'); no CUDA work in between
+    t_cpu = time.perf_counter() - t0
+    for (k, a), (_, b) in zip(card, cpu):
+        a = a.cpu()
+        close = torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+        print(f"[paper] tg fit {TG_AGREE_ROWS}x{X.shape[1]} pass {k}: card vs cpu max |dbeta| "
+              f"{max_err(a, b):.3g} (rtol 1e-4, atol 1e-6; bit-equal {torch.equal(a, b)}), "
+              f"max |beta| {float(b.abs().max()):.3g}; cpu fit {t_cpu:.1f} s")
+        check(close, f"TG pass {k}: card and cpu betas disagree beyond rtol 1e-4 / atol 1e-6")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, sites, stacks = under_sync_debug(torch, lambda: truncated_gradient_fit(
+        X, y, lam, opts=opts, generator=gen, device="cuda"))
+    for site, stack in stacks.items():
+        print(f"[paper] synchronising call at {site}:\n{stack}")
+    print(f"[paper] synchronising calls in a shuffled {TG_AGREE_PASSES}-pass card TG fit "
+          f"(sync debug mode): {dict(sites)}")
+    check(not sites, f"truncated_gradient_fit synchronised: {dict(sites)}")
+
+
+def probe_phase(torch, card, lm_inputs):
+    """The sparse probe on tinyllama-1.1b at full width: features in chunks
+    through the flash kernel, then a probe path on a 4/5 split."""
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.core.probe import extract_features, probe_path
+    from repro_torch.kernels import ops
+    from repro_torch.paper.common import make_device_eval
+
+    cfg, params, _ = lm_inputs
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(8, cfg.vocab_size, (PROBE_PROMPTS, PROBE_LEN))
+    has = rng.random(PROBE_PROMPTS) < 0.5
+    pos = rng.integers(0, PROBE_LEN, PROBE_PROMPTS)
+    tokens[has, pos[has]] = PROBE_MARKER
+    tok = torch.from_numpy(tokens.astype(np.int32)).cuda()
+    y = torch.from_numpy(np.where(has, 1.0, -1.0).astype(np.float32)).cuda()
+    feats, flash = [], []
+    t0 = time.perf_counter()
+    for lo in range(0, PROBE_PROMPTS, PROBE_CHUNK):
+        ops.reset_launch_counts()
+        feats.append(extract_features(params, cfg, tok[lo:lo + PROBE_CHUNK],
+                                      use_flash_kernel=True))
+        flash.append(ops.launch_counts()["flash_attention"])
+    F = torch.cat(feats).float()
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    finite = bool(torch.isfinite(F).all())
+    print(f"[paper] probe features: {cfg.name} ({cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, bf16) over {PROBE_PROMPTS} prompts of {PROBE_LEN} tokens in chunks "
+          f"of {PROBE_CHUNK}: {t_feat * 1e3:.1f} ms, flash_attention launches per chunk "
+          f"{flash}, finite {finite}, on {card}")
+    check(all(c == cfg.num_layers for c in flash),
+          f"flash_attention launched {flash} times per chunk, expected {cfg.num_layers}")
+    check(finite and tuple(F.shape) == (PROBE_PROMPTS, cfg.d_model),
+          f"probe features {tuple(F.shape)} not finite or misshaped")
+    F = (F - F.mean(0)) / (F.std(0) + 1e-6)
+    n_train = PROBE_PROMPTS * 4 // 5
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    pts = probe_path(F[:n_train], y[:n_train], path_len=PROBE_PATH_LEN,
+                     opts=DGLMNETOptions(**PROBE_OPTS),
+                     eval_fn=make_device_eval(F[n_train:], y[n_train:]), device="cuda")
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    for i, pt in enumerate(pts):
+        print(f"[paper] probe point {i}: lam {pt.lam:.4f} nnz {pt.nnz} status "
+              f"{pt.status} iters {pt.n_iters} test AUPRC {pt.metrics['auprc']:.4f} "
+              f"accuracy {pt.metrics['accuracy']:.4f}")
+    print(f"[paper] probe path: {len(pts)} points on {n_train} x {cfg.d_model} in "
+          f"{t_path * 1e3:.1f} ms, launches {counts}, on {card}")
+    check(len(pts) == PROBE_PATH_LEN and all(pt.ok for pt in pts),
+          f"probe path points not all OK: {[pt.status for pt in pts]}")
+    check(counts["gram_cd"] > 0 and counts["logistic_stats"] > 0,
+          f"the probe path launched {counts}")
+    return {"features_ms": t_feat * 1e3, "path_ms": t_path * 1e3, "flash": sum(flash),
+            "path_launches": counts, "best_auprc": max(pt.metrics["auprc"] for pt in pts)}
+
+
+def phase_paper(torch, card, ds, lm_inputs):
+    """The paper's comparison on the card: tg_pass against its plain
+    version, the TG fit card-vs-CPU and under sync debug mode, Table 3 and
+    Figure 1 on the epsilon cell at full width, the ablation at its own
+    shape, the sparse probe on tinyllama. Returns (the launches of the
+    driven paths, a summary)."""
+    from repro_torch.core.objective import lambda_max
+    from repro_torch.kernels import ops
+    from repro_torch.paper import ablation_parallel_cd, fig1_quality_sparsity, table3_timing
+
+    t_phase = time.perf_counter()
+    X, y = ds.X_train, ds.y_train
+    lmax = float(lambda_max(X, y))
+    tg_checks(torch, ds, lmax / 16 / X.shape[0])
+    tg_agreement(torch, ds)
+    launches = Counter()
+
+    ops.reset_launch_counts()
+    t3 = table3_timing.run_dataset("glm-epsilon", X, y, "cuda")
+    counts = ops.launch_counts()
+    launches.update(counts)
+    print(f"[paper] table3 glm-epsilon {tuple(X.shape)}: d-GLMNET {t3['iters']} iterations "
+          f"({t3['status']}) at lambda_max/64 = {t3['lam']:.4f}, {t3['iter_ms']:.3f} ms per "
+          f"iteration, line search {t3['ls_ms']:.3f} ms (CUDA events, share "
+          f"{t3['ls_share']:.3f}); truncated gradient {t3['tg_pass_ms']:.3f} ms per pass "
+          f"(16 machines); launches {counts}; on {card}")
+    check(t3["status"] == "OK", f"table3 fit tripped {t3['status']}")
+    check(counts["tg_pass"] == 1 + table3_timing.TG_PASSES,
+          f"table3's TG fits launched tg_pass {counts['tg_pass']} times")
+
+    fig = fig1_quality_sparsity
+    ops.reset_launch_counts()
+    rows, fsum = fig.run_dataset("glm-epsilon", X, y, ds.X_test, ds.y_test, "cuda")
+    counts = ops.launch_counts()
+    launches.update(counts)
+    for pt in fsum["path"]:
+        print(f"[paper] fig1 d-GLMNET lam {pt.lam:.4f}: nnz {pt.nnz} AUPRC "
+              f"{pt.metrics['auprc']:.4f} status {pt.status} iters {pt.n_iters}")
+    for div in fig.TG_LAM_DIVS:
+        for lr in fig.TG_LRS:
+            best = max((r for r in rows if r[1] == f"tg(lr={lr})"
+                        and r[2].startswith(f"{lmax / div:.4g}@")), key=lambda r: r[4])
+            last = [r for r in rows if r[1] == f"tg(lr={lr})"
+                    and r[2] == f"{lmax / div:.4g}@p{fig.TG_PASSES}"][0]
+            print(f"[paper] fig1 TG lambda_max/{div} lr {lr}: pass {fig.TG_PASSES} nnz {last[3]} "
+                  f"AUPRC {last[4]:.4f}; best snapshot {best[2]} nnz {best[3]} AUPRC "
+                  f"{best[4]:.4f}")
+    print(f"[paper] fig1 glm-epsilon: d-GLMNET best AUPRC {fsum['best_dglmnet']:.4f} (path "
+          f"{fsum['path_s'] * 1e3:.1f} ms, {fig.PATH_LEN} points) vs TG best "
+          f"{fsum['best_tg']:.4f} (sweep {fsum['tg_s'] * 1e3:.1f} ms, "
+          f"{len(fig.TG_LAM_DIVS) * len(fig.TG_LRS)} fits x {fig.TG_PASSES} passes, every "
+          f"snapshot evaluated); dglmnet_wins {fsum['dglmnet_wins']}; launches {counts}; "
+          f"on {card}")
+    check(all(pt.ok for pt in fsum["path"]), "a Figure 1 path point is not OK")
+    check(fsum["tg_finite"], "a Figure 1 TG snapshot is not finite")
+    for lr in fig.TG_LRS:
+        lo, hi = (fsum["tg_nnz"][(d, lr, fig.TG_PASSES)] for d in (16, 256))
+        check(lo <= hi, f"TG lr {lr}: nnz at lambda_max/16 ({lo}) above lambda_max/256 ({hi})")
+    n_fits = len(fig.TG_LAM_DIVS) * len(fig.TG_LRS)
+    check(counts["tg_pass"] == n_fits * fig.TG_PASSES,
+          f"the TG sweep launched tg_pass {counts['tg_pass']} times")
+    check(counts["logistic_stats"] > 0 and counts["gram_cd"] > 0,
+          f"the d-GLMNET path launched {counts}")
+
+    ops.reset_launch_counts()
+    t_abl = time.perf_counter()
+    cells = ablation_parallel_cd.run("twin", "cuda", warmup=False)
+    torch.cuda.synchronize()
+    t_abl = time.perf_counter() - t_abl
+    counts = ops.launch_counts()
+    launches.update(counts)
+    print(f"[paper] ablation (n, p) = {ablation_parallel_cd.SHAPES['twin']}: {len(cells)} fits "
+          f"in {t_abl:.1f} s, launches {counts}, on {card}")
+    check(len(cells) == 36 and all(math.isfinite(c["f"]) for c in cells),
+          "an ablation fit ended with a non-finite objective")
+    check(counts["blocked_cd"] > 0, "the ablation's blocked fits never launched blocked_cd")
+
+    probe = probe_phase(torch, card, lm_inputs)
+    launches.update({"flash_attention": probe["flash"]})
+    launches.update(probe.pop("path_launches"))
+    wall = time.perf_counter() - t_phase
+    print(f"[paper] phase wall {wall:.1f} s; on {card}")
+    return dict(launches), {"table3": t3, "fig1": fsum, "ablation": cells,
+                                 "probe": probe, "wall_s": wall}
+
+
 def lm_time_rows(torch):
     """Row 6 of the kernel table: the kernel, its plain version and
     scaled_dot_product_attention at the cell's attention shape (bfloat16,
@@ -2541,6 +2789,53 @@ def lm_time_rows(torch):
              f"B={B} S={S} H={H} Hk={Hk} D={D} bf16 causal; bound at the bf16 tensor-core "
              f"peak (the f32 CUDA-core peak would give "
              f"{n_flops / F32_FLOPS_PER_S * 1e3:.3f} ms)", BF16_FLOPS_PER_S)]
+
+
+def tg_time_row(torch, ds, flush, launches, card):
+    """The kernel table's tg_pass row: one truncated-gradient pass over the
+    epsilon cell (16 machines x 20,000 steps x p = 2000), the main path's
+    shape, the kernel against its plain version (a host loop of some 35
+    launches per step, about 10 s a call, so timed over one call with no
+    warm-up). The timed calls' outputs are kept: every launch bit-equal to
+    the first, and the kernel within atol = rtol = 1e-5 of its plain
+    version, which is the row's error. Bound: X read once, beside the chain
+    of 20,000 dependent block reductions the kernel cannot beat."""
+    from repro_torch.core.truncated_gradient import shrink as tg_shrink
+    from repro_torch.kernels import ref, tg_pass
+
+    M = 16
+    n, p = ds.X_train.shape
+    S = n // M
+    Xs = ds.X_train[:M * S].view(M, S, p)
+    ys = ds.y_train[:M * S].view(M, S)
+    beta0 = torch.zeros(p, device="cuda")
+    shrink = tg_shrink(0.1, 1e-3)
+    outs, plain_out = [], []
+    ms = time_ms(torch, lambda: outs.append(
+        tg_pass.tg_pass_kernel(Xs, ys, beta0, 0.1, shrink, math.inf)), flush)
+    plain_ms = time_ms(torch, lambda: plain_out.append(
+        ref.tg_pass_ref(Xs, ys, beta0, 0.1, shrink, math.inf)), flush, reps=1, warmup=0)
+    got, plain = outs[0], plain_out[0]
+    err = max_err(got, plain)
+    ok = torch.allclose(got, plain, atol=TOL, rtol=TOL)
+    same = all(torch.equal(got, o) for o in outs[1:])
+    print(f"[times] tg_pass M={M} steps={S} p={p}: max abs err {err:.3g} against its plain "
+          f"version (atol = rtol = {TOL}; bit-equal {torch.equal(got, plain)}), {len(outs)} "
+          f"launches {'bit-equal' if same else 'DIFFERENT'} -> "
+          f"{'ok' if ok and same else 'MISMATCH'}")
+    check(ok, f"tg_pass at the cell's shape disagrees with its plain version by {err}")
+    check(same, "tg_pass at the cell's shape: the timed launches differ")
+    del outs, plain_out
+    n_bytes = 4 * (M * S * p + M * S + p + M * p)
+    n_flops = M * S * (8 * p + 20)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    print(f"[times] tg_pass: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
+          f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}; "
+          f"M={M} steps={S} p={p}, {ms * 1e6 / S:.1f} ns per dependent step")
+    return {"name": "tg_pass", "route": "cuda", "source": "src/repro_torch/kernels/csrc/tg_pass.cu",
+            "replaces": "src/repro/core/truncated_gradient.py:33",
+            "launches": launches.get("tg_pass", 0), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def profile_prefill(torch, lm_inputs, card):
@@ -2701,7 +2996,7 @@ def spmv_extra_times(torch, inp, flush, card):
           f"bound {b_ms:.5f} ms (bytes: {n_bytes}; {touched} rows touched) on {card}")
 
 
-def phase_times(torch, gen, errs, launches, card, sparse_inputs):
+def phase_times(torch, gen, errs, launches, card, sparse_inputs, ds):
     from repro_torch.core.subproblem import blocked_cycle_modes
     from repro_torch.kernels import blocked_cd, gram_cd, logistic_stats, ref
 
@@ -2751,6 +3046,7 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs):
                       "replaces": replaces, "launches": launches.get(name, 0),
                       "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+    table.append(tg_time_row(torch, ds, flush, launches, card))
     spmv_extra_times(torch, sparse_inputs, flush, card)
     serve_extra_times(torch, sparse_inputs["serve"], flush, card)
     return table
@@ -2768,6 +3064,8 @@ def _kind(name: str) -> str:
         return "slab_spmv kernel"
     if "flash_bf16_kernel" in low or "flash_f32_kernel" in low:
         return "flash_attention kernel"
+    if "tg_pass_kernel" in low:
+        return "tg_pass kernel"
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas", "dot_kernel",
                               "nvjet")):
         return "matmul (cuBLAS)"
@@ -2830,17 +3128,25 @@ def profile_fit(torch, label: str, fit, card):
 
 
 def phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs):
-    """One dense fit and a 3-iteration sparse fit per cycle mode, and one LM
-    prefill, profiled."""
+    """One dense fit and a 3-iteration sparse fit per cycle mode, a 2-pass
+    truncated-gradient fit, the path's head and one LM prefill, profiled."""
     from repro_torch.api import DenseDesign, LogisticL1, SlabDesign
     from repro_torch.core.dglmnet import DGLMNETOptions
     from repro_torch.launch.mesh import make_dev_mesh
+
+    from repro_torch.core.truncated_gradient import TGOptions, truncated_gradient_fit
 
     for mode in ("sequential", "blocked"):
         est = LogisticL1(DGLMNETOptions(num_blocks=16, tile=128, max_iters=100,
                                         cycle_mode=mode, block=16), device="cuda")
         profile_fit(torch, f"dense {mode}",
                     lambda: est.fit(DenseDesign(ds.X_train), ds.y_train, lam), card)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    _, tg_rows, busy, wall_ms = device_profile(torch, "tg fit", lambda: truncated_gradient_fit(
+        ds.X_train, ds.y_train, lam, opts=TGOptions(num_machines=16, passes=2), generator=gen,
+        device="cuda"))
+    report_profile("tg fit", "2 shuffled passes of 16 machines over the dense cell", tg_rows,
+                   busy, wall_ms, card)
     (rows, vals, y), _ = cell
     for mode in ("sequential", "blocked"):
         opts = DGLMNETOptions(**dict(SPARSE_OPTS, max_iters=3, cycle_mode=mode))
@@ -2873,9 +3179,10 @@ PATH_STAGES = (("screen passes", "ShardedDesign", "_screen_abs_work"),
 
 def profile_path(torch, cell, card):
     """The path's first ``PATH_DIRECT`` points (lambda_max/2 ... /8; reading
-    a profile takes the host about 6 s per thousand tile steps) per
-    cycle mode under torch.profiler: busy and idle time and the device
-    time by kernel. Its
+    a profile takes the host about 6 s per thousand tile steps) in the
+    sequential cycle mode under torch.profiler (the blocked mode's profile,
+    about 85 s of reading, was cut to make room for the paper phase): busy
+    and idle time and the device time by kernel. Its
     device-bound stages (screen passes, working-set gathers, the layout
     sorts of each restricted solve) are bracketed by a synchronise and
     CUDA events, so each one's device time is read apart (an upper bound
@@ -2908,40 +3215,39 @@ def profile_path(torch, cell, card):
     try:
         for (label, _, _), (owner, attr, fn) in zip(PATH_STAGES, saved):
             setattr(owner, attr, timed(label, fn))
-        for mode in ("sequential", "blocked"):
-            est = LogisticL1(DGLMNETOptions(cycle_mode=mode, **SPARSE_OPTS),
-                             mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
-            spans.clear()
+        est = LogisticL1(DGLMNETOptions(cycle_mode="sequential", **SPARSE_OPTS),
+                         mesh=make_dev_mesh(1, SPARSE_M), device="cuda")
+        spans.clear()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = est.path(design, y, path_len=PATH_DIRECT)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                res = est.path(design, y, path_len=PATH_DIRECT)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            t1 = time.perf_counter()
-            rows_ = []
-            for ev in prof.key_averages():
-                us = getattr(ev, "self_device_time_total", None)
-                if us is None:
-                    us = getattr(ev, "self_cuda_time_total", 0)
-                if us > 0 and getattr(ev.device_type, "name", "") == "CUDA":
-                    rows_.append((us / 1e3, ev.count, ev.key))
-            rows_.sort(reverse=True)
-            label = f"path {mode} (lambda_max/2 ... /{2 ** PATH_DIRECT})"
-            check(bool(rows_), f"profile {label}: the profiler recorded no device time")
-            busy = sum(r[0] for r in rows_)
-            report_profile(label, f"{len(res)} points", rows_, busy, wall_ms, card)
-            stage_ms = Counter()
-            for name, start, end in spans:
-                stage_ms[name] += start.elapsed_time(end)
-            for name, _, _ in PATH_STAGES:
-                print(f"[profile] {label}: {name}: {stage_ms[name]:.2f} ms of device time "
-                      f"({stage_ms[name] / busy:.1%} of busy), "
-                      f"{sum(1 for s in spans if s[0] == name)} calls")
-            rest = busy - stage_ms["screen passes"] - stage_ms["gathers"]
-            print(f"[profile] {label}: restricted solves and the driver's elementwise work: "
-                  f"{rest:.2f} ms ({rest / busy:.1%} of busy; the layout sorts within it); "
-                  f"reading the profile took {time.perf_counter() - t1:.1f} s on the host")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        rows_ = []
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            if us > 0 and getattr(ev.device_type, "name", "") == "CUDA":
+                rows_.append((us / 1e3, ev.count, ev.key))
+        rows_.sort(reverse=True)
+        label = f"path sequential (lambda_max/2 ... /{2 ** PATH_DIRECT})"
+        check(bool(rows_), f"profile {label}: the profiler recorded no device time")
+        busy = sum(r[0] for r in rows_)
+        report_profile(label, f"{len(res)} points", rows_, busy, wall_ms, card)
+        stage_ms = Counter()
+        for name, start, end in spans:
+            stage_ms[name] += start.elapsed_time(end)
+        for name, _, _ in PATH_STAGES:
+            print(f"[profile] {label}: {name}: {stage_ms[name]:.2f} ms of device time "
+                  f"({stage_ms[name] / busy:.1%} of busy), "
+                  f"{sum(1 for s in spans if s[0] == name)} calls")
+        rest = busy - stage_ms["screen passes"] - stage_ms["gathers"]
+        print(f"[profile] {label}: restricted solves and the driver's elementwise work: "
+              f"{rest:.2f} ms ({rest / busy:.1%} of busy; the layout sorts within it); "
+              f"reading the profile took {time.perf_counter() - t1:.1f} s on the host")
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
@@ -3130,7 +3436,10 @@ def main() -> int:
     lm_launches, lm_stats, lm_inputs = phase_lm(torch, card)
     launches.update(lm_launches)
     phase_lm_agree(torch)
-    table = phase_times(torch, gen, errs, launches, card, sparse_inputs)
+    paper_launches, paper = phase_paper(torch, card, ds, lm_inputs)
+    for name, count in paper_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    table = phase_times(torch, gen, errs, launches, card, sparse_inputs, ds)
     del sparse_inputs
     for mode, (wall, wall2, iters, syncs) in fits.items():
         print(f"[times] fit {mode}: {wall:.3f} s whole fit (again {wall2:.3f} s), "
@@ -3164,6 +3473,13 @@ def main() -> int:
           f"{statistics.median(ms for _, ms in k['saves']):.1f} ms; transient lost bucket "
           f"{lb['transient_ms']:.1f} ms against {lb['streamed_ms']:.1f} ms streamed; phase "
           f"{chaos['wall_s']:.1f} s; on {card}")
+    t3, f1 = paper["table3"], paper["fig1"]
+    print(f"[times] paper glm-epsilon: table3 d-GLMNET {t3['iters']} iterations, "
+          f"{t3['iter_ms']:.3f} ms per iteration, line-search share {t3['ls_share']:.3f}, TG "
+          f"{t3['tg_pass_ms']:.3f} ms per pass; fig1 best AUPRC d-GLMNET "
+          f"{f1['best_dglmnet']:.4f} vs TG {f1['best_tg']:.4f} (dglmnet_wins "
+          f"{f1['dglmnet_wins']}); probe best AUPRC {paper['probe']['best_auprc']:.4f}; "
+          f"phase {paper['wall_s']:.1f} s; on {card}")
     print(f"[times] lm serve {LM_ARCH}: prefill {lm_stats['prefill_ms']:.2f} ms, decode "
           f"{lm_stats['decode_ms_per_token']:.3f} ms/token, whole generation "
           f"{lm_stats['wall_s']:.3f} s, {lm_stats['peak_gb']:.2f} GB peak, on {card}")

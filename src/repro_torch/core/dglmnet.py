@@ -7,25 +7,31 @@ feature blocks: the counterpart of ``repro/core/dglmnet.py``.
   but the tensors' device, not an option, picks kernels or plain
   versions; ``device_budget_bytes`` is the mesh slab designs' residency
   budget (``api.strategy``, ``data.residency``).
-* :func:`_iteration` -- one outer iteration, batched over the M blocks.
+* :func:`_iteration` -- one outer iteration, batched over the M blocks,
+  on X laid out by ``layout_blocks``; :func:`dglmnet_iteration` the same
+  on a dense X (the reference's jitted ``dglmnet_iteration``).
 * :func:`fit` -- delegates to the front door
   ``repro_torch.api.LogisticL1``.
+* :func:`fit_python_loop` -- the host-driven outer loop, the engine's
+  oracle: one counted host read per iteration and one at the stop.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import engine
-from repro_torch.core.objective import working_stats
+from repro_torch.core.linesearch import f_alpha, line_search
+from repro_torch.core.objective import margins, objective, working_stats
 from repro_torch.core.subproblem import (
+    layout_blocks,
     layout_coefs,
     solve_subproblem,
     unlayout_coefs,
 )
-from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 _CYCLE_MODES = ("sequential", "blocked", "auto")
 _METHODS = ("gram", "blocked", "residual", "jacobi")
@@ -82,6 +88,12 @@ class DGLMNETOptions:
                 f"{self.device_budget_bytes}")
 
 
+class FitState(NamedTuple):
+    beta: torch.Tensor
+    m: torch.Tensor                  # margin cache X @ beta
+    f: torch.Tensor                  # objective value
+
+
 @dataclass
 class FitResult:
     beta: torch.Tensor
@@ -131,6 +143,13 @@ def _iteration(Xt, y, beta, m, lam, opts: DGLMNETOptions, w=None, z=None):
     return dbeta, dm, grad_dot
 
 
+def dglmnet_iteration(X, y, beta, m, lam, opts: DGLMNETOptions):
+    """One outer iteration on a dense X (n, p): X laid out into the M
+    blocks' tiles (one copy), then :func:`_iteration`. Returns (dbeta, dm,
+    grad_dot)."""
+    return _iteration(layout_blocks(X, opts.num_blocks, opts.tile), y, beta, m, lam, opts)
+
+
 def build_solver(opts: DGLMNETOptions, *, fault=None):
     """The engine's outer loop with this bundle's iteration plugged in;
     ``fault`` (a ``resilience.EngineFault``) poisons one iteration."""
@@ -151,3 +170,71 @@ def fit(X, y, lam: float, *, beta0: Optional[torch.Tensor] = None,
 
     return LogisticL1(opts=opts, device=device).fit(
         DenseDesign(X), y, lam, beta0=beta0, verbose=verbose)
+
+
+def fit_python_loop(X, y, lam: float, *, beta0: Optional[torch.Tensor] = None,
+                    opts: DGLMNETOptions = DGLMNETOptions(), device=DEFAULT_DEVICE,
+                    verbose: bool = False) -> FitResult:
+    """The reference's host-driven outer loop, the oracle of the engine
+    (``core/engine.py``): the same math as :func:`fit`, with the stop
+    decided on the host in double from one counted read per iteration
+    (alpha, the new objective and the unit-step flag, packed), one read of
+    f(beta0) and one of the snap-back's f(alpha = 1) at the stop."""
+    dev = resolve_device(device)
+    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    p = X.shape[1]
+    beta = (torch.zeros(p, dtype=torch.float32, device=dev) if beta0 is None
+            else torch.as_tensor(beta0, dtype=torch.float32, device=dev))
+    Xt = layout_blocks(X, opts.num_blocks, opts.tile)
+    m = margins(X, beta)
+    f = objective(m, y, beta, lam)
+
+    hist, alphas = [engine.host_read(f)], []
+    unit_steps = 0
+    converged = False
+    it = 0
+
+    for it in range(1, opts.max_iters + 1):
+        dbeta, dm, grad_dot = _iteration(Xt, y, beta, m, lam, opts)
+        res = line_search(m, dm, y, beta, dbeta, lam, grad_dot)
+        alpha, f_new, unit = engine.host_read(torch.stack(
+            [res.alpha, res.f_new, res.took_unit_step.to(torch.float32)]))
+        unit_steps += int(unit)
+        alphas.append(alpha)
+
+        rel_dec = (hist[-1] - f_new) / max(abs(hist[-1]), 1e-12)
+        stop = rel_dec < opts.rel_tol or it == opts.max_iters
+
+        if stop:
+            # Sparsity snap-back: prefer alpha = 1 if the objective increase
+            # is tolerable (keeps coordinates that landed exactly on 0). The
+            # histories report the applied step: the recorded alpha is
+            # overwritten and the promoted unit step counted.
+            f_unit = engine.host_read(f_alpha(1.0, m, dm, y, beta, dbeta, lam))
+            if f_unit <= f_new * (1.0 + opts.snap_tol) + 1e-12:
+                if alpha != 1.0:
+                    unit_steps += 1
+                alpha, f_new = 1.0, f_unit
+                alphas[-1] = alpha
+            beta = beta + alpha * dbeta
+            m = m + alpha * dm
+            hist.append(f_new)
+            converged = rel_dec < opts.rel_tol
+            break
+
+        beta = beta + alpha * dbeta
+        m = m + alpha * dm
+        hist.append(f_new)
+        if verbose:
+            print(f"  iter {it:3d}  f={hist[-1]:.6f}  alpha={alpha:.4f}")
+
+    return FitResult(
+        beta=beta,
+        f=hist[-1],
+        n_iters=it,
+        objective_history=hist,
+        alpha_history=alphas,
+        unit_step_frac=unit_steps / max(it, 1),
+        converged=converged,
+    )

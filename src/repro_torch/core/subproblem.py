@@ -269,15 +269,19 @@ def solve_subproblem(Xt, w, z, beta, lam, *, method: str = "gram",
 
     Xt (M, nt, n, F), beta (M, nt * F). Returns (dbeta, dmargin) with
     dmargin (M, n) = X_m @ dbeta_m per block. ``method="blocked"`` is
-    the Gram path with ``cycle_mode="blocked"``. The residual and
-    Jacobi methods of the reference are not ported to the batched path.
+    the Gram path with ``cycle_mode="blocked"``; ``method="jacobi"`` the
+    reference's Shotgun-style ablation, every coordinate of a block at
+    once from one residual (the ablation driver's baseline). The residual
+    method of the reference is not ported to the batched path.
     """
     if method == "blocked":
         method, cycle_mode = "gram", "blocked"
+    if method == "jacobi":
+        return _solve_jacobi(Xt, w, z, beta, lam, n_cycles=n_cycles, nu=nu)
     if method != "gram":
         raise ValueError(
             f"method {method!r} is not ported to the batched solve; use "
-            f"'gram' or 'blocked'")
+            f"'gram', 'blocked' or 'jacobi'")
     dbeta = torch.zeros_like(beta)
     r = z.expand(Xt.shape[0], -1)                   # dbeta = 0 initially
     for _ in range(n_cycles):
@@ -287,3 +291,21 @@ def solve_subproblem(Xt, w, z, beta, lam, *, method: str = "gram",
     dm = sum((Xt[:, t] @ dbeta[:, t * tile:(t + 1) * tile, None])[..., 0]
              for t in range(Xt.shape[1]))
     return dbeta, dm
+
+
+def _solve_jacobi(Xt, w, z, beta, lam, *, n_cycles: int, nu: float):
+    """The reference's ``method="jacobi"``: per block, G and c over all of
+    its features (the tiles side by side; padded features have G = 0 and
+    stay 0) and one Jacobi step of every coordinate per cycle."""
+    M, nt, n, F = Xt.shape
+    Xb = Xt.permute(0, 2, 1, 3).reshape(M, n, nt * F)
+    dbeta = torch.zeros_like(beta)
+    r = z.expand(M, -1)
+    for _ in range(n_cycles):
+        wX = w[None, :, None] * Xb
+        G = Xb.transpose(1, 2) @ wX
+        c = (wX.transpose(1, 2) @ r[..., None])[..., 0]
+        d = cd_cycle_jacobi_tile(G, c, beta, dbeta, lam, nu)
+        dbeta = dbeta + d
+        r = r - (Xb @ d[..., None])[..., 0]
+    return dbeta, (Xb @ dbeta[..., None])[..., 0]

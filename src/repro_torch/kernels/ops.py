@@ -27,6 +27,7 @@ from repro_torch.kernels import logistic_stats as _logistic_stats
 from repro_torch.kernels import ref
 from repro_torch.kernels import slab_gram as _slab_gram
 from repro_torch.kernels import slab_spmv as _slab_spmv
+from repro_torch.kernels import tg_pass as _tg_pass
 from repro_torch.kernels.slab_spmv import SlabOrder, slab_order
 
 _KERNELS = {
@@ -36,18 +37,21 @@ _KERNELS = {
     "slab_gram": _slab_gram,
     "slab_spmv": _slab_spmv,
     "flash_attention": _flash_attention,
+    "tg_pass": _tg_pass,
 }
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches per kernel since the last reset; ``slab_path_spmv`` is
-    ``slab_spmv``'s serving mode, counted apart."""
+    """Launches per kernel of the solver, baseline and LM paths since the
+    last reset; ``slab_path_spmv`` is ``slab_spmv``'s serving mode, counted
+    apart."""
     counts = {name: mod.launches for name, mod in _KERNELS.items()}
     counts["slab_path_spmv"] = _slab_spmv.path_launches
     return counts
 
 
 def reset_launch_counts() -> None:
+    """Zero every kernel's count."""
     for mod in _KERNELS.values():
         mod.launches = 0
     _slab_spmv.path_launches = 0
@@ -246,3 +250,18 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if _on_cuda(q, k, v):
         return _flash_attention.flash_attention_kernel(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)
+
+
+# ---------------------------------------------------------------------------
+# the truncated-gradient baseline (paper section 4.3)
+# ---------------------------------------------------------------------------
+
+def tg_pass(Xs, ys, beta, eta: float, shrink: float, theta: float):
+    """One truncated-gradient pass per machine: Xs (M, steps, p), ys (M,
+    steps), the shared warm start beta (p,) -> each machine's beta (M, p).
+    ``shrink`` is eta * gravity rounded to float32. On the card one launch
+    for all M machines (p up to ``tg_pass.MAX_P``, else a
+    ``TGWidthError``)."""
+    if _on_cuda(Xs, ys, beta):
+        return _tg_pass.tg_pass_kernel(Xs, ys, beta, eta, shrink, theta)
+    return ref.tg_pass_ref(Xs, ys, beta, eta, shrink, theta)

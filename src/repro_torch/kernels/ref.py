@@ -159,3 +159,54 @@ def flash_attention_ref(q, k, v, *, causal=True):
         logits = torch.where(mask, logits, -1e30)
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v.to(torch.float32)).to(q.dtype)
+
+
+def _tree_fold(v):
+    """Sum the last axis (a power of two) as the kernels' shuffle tree
+    does: lane l adds lane l + off for off = width/2 ... 1."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def tg_margin(x, b):
+    """Plain version of ``csrc/tg_pass.cu``'s margin, in its sum order:
+    coordinate j = k * THREADS + t is thread t's k-th product; each thread
+    sums its products in k order, each warp of 32 threads by the shuffle
+    tree, and the warps' sums by the same tree padded to 32 lanes (exact
+    zeros). ``x``, ``b`` (M, p) float32 -> (M,)."""
+    from repro_torch.kernels.tg_pass import THREADS
+
+    M, p = x.shape
+    per = max(1, -(-p // THREADS))
+    prod = torch.nn.functional.pad(x * b, (0, per * THREADS - p)).view(M, per, THREADS)
+    v = prod[:, 0]
+    for k in range(1, per):
+        v = v + prod[:, k]
+    warps = _tree_fold(v.view(M, THREADS // 32, 32))
+    return _tree_fold(torch.nn.functional.pad(warps, (0, 32 - warps.shape[-1])))
+
+
+def tg_pass_ref(Xs, ys, beta, eta: float, shrink: float, theta: float):
+    """Plain version of kernels.tg_pass: one truncated-gradient pass per
+    machine from the shared warm start ``beta`` (p,) over Xs (M, steps, p)
+    and ys (M, steps); returns (M, p). Per example, as the reference's
+    ``_tg_pass`` writes it: g = sigmoid(x.beta) - (y+1)/2, beta -= eta (g
+    x), then where(|beta| <= theta, sign(beta) max(|beta| - shrink, 0),
+    beta) with shrink = eta * gravity. The margin is :func:`tg_margin`'s
+    fixed order and the sigmoid's exp is taken in double, as the kernel
+    takes them, so the two agree though the pass is chaotic."""
+    Xs = Xs.to(torch.float32)
+    ys = ys.to(torch.float32)
+    M, steps, p = Xs.shape
+    b = beta.to(torch.float32).expand(M, p).clone()
+    one = torch.ones((), dtype=torch.float32, device=Xs.device)
+    for i in range(steps):
+        x = Xs[:, i]
+        e = torch.exp(-tg_margin(x, b).double()).to(torch.float32)
+        g = one / (one + e) - (ys[:, i] + 1.0) * 0.5
+        b = b - eta * (g[:, None] * x)
+        a = b.abs()
+        b = torch.where(a <= theta, torch.sign(b) * torch.clamp_min(a - shrink, 0.0), b)
+    return b

@@ -103,7 +103,7 @@ def init_lm_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None, *, d
 # ---------------------------------------------------------------------------
 
 
-def lm_forward(
+def lm_hidden(
     params: LM,
     inputs: Dict[str, Any],
     cfg: ModelConfig,
@@ -113,9 +113,11 @@ def lm_forward(
     cache_index: Optional[int] = None,    # tokens already cached
     use_flash_kernel: bool = False,
 ):
-    """Returns (logits (B, S, padded_vocab) in the compute type, new_cache,
-    aux). Prefill's new cache holds the prompt's K/V stacked per segment;
-    decode writes ``cache`` in place and returns it."""
+    """The layers and the final norm: returns (final-norm hidden states
+    (B, S, d_model) in the compute type, new_cache). Prefill's new cache
+    holds the prompt's K/V stacked per segment; decode writes ``cache`` in
+    place and returns it. The sparse probe (``core/probe.py``) reads these
+    states; :func:`lm_forward` adds the head."""
     if any(inputs.get(k) is not None for k in ("patch_embeds", "frame_embeds")):
         raise NotImplementedError("frontend embeddings are not ported yet")
     cdtype = dtype_of(cfg.compute_dtype)
@@ -147,7 +149,28 @@ def lm_forward(
             new_seg_caches.append(seg_cache)
 
     h = apply_norm(params.final_norm, x, eps=cfg.norm_eps)
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = h @ head.to(h.dtype)
     new_cache = {"segments": new_seg_caches} if mode in ("prefill", "decode") else None
-    return logits, new_cache, {}
+    return h, new_cache
+
+
+def lm_head(params: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits (B, S, padded_vocab) from the final-norm hidden states."""
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return h @ head.to(h.dtype)
+
+
+def lm_forward(
+    params: LM,
+    inputs: Dict[str, Any],
+    cfg: ModelConfig,
+    *,
+    mode: str = "train",                  # train | prefill | decode
+    cache: Optional[dict] = None,
+    cache_index: Optional[int] = None,    # tokens already cached
+    use_flash_kernel: bool = False,
+):
+    """Returns (logits (B, S, padded_vocab) in the compute type, new_cache,
+    aux): :func:`lm_hidden` then :func:`lm_head`."""
+    h, new_cache = lm_hidden(params, inputs, cfg, mode=mode, cache=cache,
+                             cache_index=cache_index, use_flash_kernel=use_flash_kernel)
+    return lm_head(params, h, cfg), new_cache, {}

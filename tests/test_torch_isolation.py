@@ -119,3 +119,44 @@ def test_the_walk_covers_analysis_and_the_example():
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_the_walk_covers_the_paper_slice():
+    """The truncated-gradient baseline, the probe and the paper's drivers
+    copy reference modules that import JAX; each is walked, and importing
+    them loads neither JAX nor the reference."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    for name in ("core/truncated_gradient.py", "core/probe.py", "kernels/tg_pass.py",
+                 "paper/__init__.py", "paper/__main__.py", "paper/common.py",
+                 "paper/table2_datasets.py", "paper/table3_timing.py",
+                 "paper/fig1_quality_sparsity.py", "paper/ablation_parallel_cd.py"):
+        assert name in checked, name
+    code = ("import sys, repro_torch.core.truncated_gradient, repro_torch.core.probe\n"
+            "import repro_torch.paper.__main__, repro_torch.paper.fig1_quality_sparsity\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("entry", ["truncated_gradient_fit", "fit_python_loop",
+                                   "train_sparse_probe", "paper"])
+def test_paper_entry_points_raise_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.core import fit_python_loop, truncated_gradient_fit
+    from repro_torch.core.probe import train_sparse_probe
+    from repro_torch.paper.__main__ import main
+
+    X = np.zeros((8, 4), np.float32)
+    y = np.ones(8, np.float32)
+    call = {
+        "truncated_gradient_fit": lambda: truncated_gradient_fit(X, y, 0.1),
+        "fit_python_loop": lambda: fit_python_loop(X, y, 0.1),
+        "train_sparse_probe": lambda: train_sparse_probe(X, y, lam=0.1),
+        "paper": lambda: main(["--only", "table2", "--scale", "tiny"]),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

@@ -200,7 +200,7 @@ def test_dispatch_routes_cpu_tensors_to_plain_versions():
                         torch.zeros(1, 64, 1, 32))
     assert ops.launch_counts() == {"logistic_stats": 0, "gram_cd": 0, "blocked_cd": 0,
                                    "slab_gram": 0, "slab_spmv": 0, "flash_attention": 0,
-                                   "slab_path_spmv": 0}
+                                   "tg_pass": 0, "slab_path_spmv": 0}
     with pytest.raises(ValueError, match="mixed devices"):
         ops.logistic_stats(torch.zeros(4), torch.ones(4, device="meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
