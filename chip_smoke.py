@@ -191,8 +191,9 @@ of which fails the run with a non-zero exit:
    within 1e-4, 8 greedy tokens equal;
 12a. paper -- the paper's comparison (section 4.3): ``tg_pass`` against
    its plain version on the card at (M=16, 2048 steps, p=2000; the
-   epsilon cell's rows) and (M=4, 1000 steps, p=4099, theta 0.05), atol =
-   rtol = 1e-5, two launches bit-equal; a truncated-gradient fit (8192 x
+   epsilon cell's rows), (M=4, 1000 steps, p=4099, theta 0.05; rows not
+   16-byte aligned) and (M=2, 500 steps, p=8192, the widest it takes),
+   bit for bit, two launches bit-equal; a truncated-gradient fit (8192 x
    2000, 16 machines, 3 passes) on the card against the CPU's (rtol 1e-4,
    atol 1e-6) and, shuffled, with no synchronising call under sync debug
    mode; Table 3 on the epsilon cell at full width
@@ -215,7 +216,9 @@ of which fails the run with a non-zero exit:
    shape (16 blocks of 65,536 features), beside its byte bound, and its
    path mode at both serve shapes (no single PyTorch call gathers a
    per-row coefficient, so its library column is null); ``tg_pass`` over
-   one epsilon pass (16 x 20,000 steps; no library call);
+   one epsilon pass (16 x 20,000 steps; no library call), every timed
+   launch bit-equal to its plain version, with ns per step beside its
+   byte bound, the least step and this design's chain;
 14. profile -- device time by kernel (torch.profiler) for one dense fit
    per cycle mode, a 2-pass truncated-gradient fit, a 3-iteration sparse
    fit per cycle mode (with device launches per tile step), the path's
@@ -2547,9 +2550,20 @@ def phase_lm_agree(torch):
 # ---------------------------------------------------------------------------
 
 #: tg_pass against its plain version: (machines, steps, p, theta); the
-#: first is the epsilon cell's (its first 16 x 2048 rows), the second wide
-#: and with a finite theta, so that the truncation's where bites
-TG_SHAPES = ((16, 2048, 2000, float("inf")), (4, 1000, 4099, 0.05))
+#: first is the epsilon cell's (its first 16 x 2048 rows), the second wide,
+#: its rows not 16-byte aligned (the kernel's cp.async path) and with a
+#: finite theta, so that the truncation's where bites, the third the
+#: widest the kernel takes
+TG_SHAPES = ((16, 2048, 2000, float("inf")), (4, 1000, 4099, 0.05),
+             (2, 500, 8192, float("inf")))
+#: the dependent latency of one tg_pass step at p = 2000 (a dot reduced to
+#: a value every thread holds, a sigmoid, one update), summed from the
+#: latencies that scripts/tg_step_probe.cu measures on an H100 (NVIDIA
+#: H100 80GB HBM3, 700 W): the least step, with the hardware exp and one
+#: division (the chain bound), and this design's chain, with the float
+#: sigmoid the host repeats bit for bit
+TG_LEAST_NS_PER_STEP = 158.6
+TG_CHAIN_NS_PER_STEP = 172.0
 #: the TG fit on the card against the CPU's: rows of the epsilon cell, passes
 TG_AGREE_ROWS, TG_AGREE_PASSES = 8192, 3
 PROBE_PROMPTS, PROBE_LEN, PROBE_CHUNK, PROBE_MARKER = 2048, 128, 256, 7
@@ -2558,8 +2572,9 @@ PROBE_OPTS = dict(num_blocks=4, tile=32, max_iters=40)     # examples/sparse_pro
 
 
 def tg_checks(torch, ds, gravity: float):
-    """tg_pass against tg_pass_ref on the card at TG_SHAPES (atol = rtol =
-    1e-5; two launches bit-equal). The cell's whole pass is held to its
+    """tg_pass against tg_pass_ref on the card at TG_SHAPES, bit for bit
+    (the plain version repeats the kernel's sum order and float sigmoid op
+    for op); two launches bit-equal. The cell's whole pass is held to its
     plain version in tg_time_row."""
     from repro_torch.core.truncated_gradient import shrink as tg_shrink
     from repro_torch.kernels import ref, tg_pass
@@ -2581,12 +2596,14 @@ def tg_checks(torch, ds, gravity: float):
         torch.cuda.synchronize()
         e = max_err(got, plain)
         ok = torch.allclose(got, plain, atol=TOL, rtol=TOL)
+        bits = torch.equal(got, plain)
         same = torch.equal(got, again)
         print(f"[paper] tg_pass M={M} steps={S} p={p} theta={theta}: max abs err {e:.3g} "
-              f"(atol = rtol = {TOL}; bit-equal to the plain version: "
-              f"{torch.equal(got, plain)}), two launches {'bit-equal' if same else 'DIFFERENT'}, "
-              f"max |beta| {float(got.abs().max()):.3g} -> {'ok' if ok and same else 'MISMATCH'}")
+              f"(atol = rtol = {TOL}; bit-equal to the plain version: {bits}), two launches "
+              f"{'bit-equal' if same else 'DIFFERENT'}, max |beta| {float(got.abs().max()):.3g} "
+              f"-> {'ok' if ok and bits and same else 'MISMATCH'}")
         check(ok, f"tg_pass M={M} p={p} disagrees with its plain version by {e}")
+        check(bits, f"tg_pass M={M} p={p} is not bit-equal to its plain version")
         check(same, f"tg_pass M={M} p={p}: two launches differ")
 
 
@@ -2794,12 +2811,13 @@ def lm_time_rows(torch):
 def tg_time_row(torch, ds, flush, launches, card):
     """The kernel table's tg_pass row: one truncated-gradient pass over the
     epsilon cell (16 machines x 20,000 steps x p = 2000), the main path's
-    shape, the kernel against its plain version (a host loop of some 35
-    launches per step, about 10 s a call, so timed over one call with no
+    shape, the kernel against its plain version (a host loop of some 55
+    launches per step, 11-17 s a call, so timed over one call with no
     warm-up). The timed calls' outputs are kept: every launch bit-equal to
-    the first, and the kernel within atol = rtol = 1e-5 of its plain
-    version, which is the row's error. Bound: X read once, beside the chain
-    of 20,000 dependent block reductions the kernel cannot beat."""
+    the first and to the plain version (the row's error is 0). Bound: X
+    read once, printed beside the chain bound, 20,000 dependent steps of
+    TG_LEAST_NS_PER_STEP each, and this design's chain (steps of
+    TG_CHAIN_NS_PER_STEP)."""
     from repro_torch.core.truncated_gradient import shrink as tg_shrink
     from repro_torch.kernels import ref, tg_pass
 
@@ -2818,20 +2836,28 @@ def tg_time_row(torch, ds, flush, launches, card):
     got, plain = outs[0], plain_out[0]
     err = max_err(got, plain)
     ok = torch.allclose(got, plain, atol=TOL, rtol=TOL)
+    bits = torch.equal(got, plain)
     same = all(torch.equal(got, o) for o in outs[1:])
     print(f"[times] tg_pass M={M} steps={S} p={p}: max abs err {err:.3g} against its plain "
-          f"version (atol = rtol = {TOL}; bit-equal {torch.equal(got, plain)}), {len(outs)} "
+          f"version (atol = rtol = {TOL}; bit-equal {bits}), {len(outs)} "
           f"launches {'bit-equal' if same else 'DIFFERENT'} -> "
-          f"{'ok' if ok and same else 'MISMATCH'}")
+          f"{'ok' if ok and bits and same else 'MISMATCH'}")
     check(ok, f"tg_pass at the cell's shape disagrees with its plain version by {err}")
+    check(bits, "tg_pass at the cell's shape is not bit-equal to its plain version")
     check(same, "tg_pass at the cell's shape: the timed launches differ")
     del outs, plain_out
     n_bytes = 4 * (M * S * p + M * S + p + M * p)
     n_flops = M * S * (8 * p + 20)
     b_ms, b_by = bound_ms(n_bytes, n_flops)
+    least_ms = S * TG_LEAST_NS_PER_STEP * 1e-6
+    chain_ms = S * TG_CHAIN_NS_PER_STEP * 1e-6
     print(f"[times] tg_pass: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
-          f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}; "
-          f"M={M} steps={S} p={p}, {ms * 1e6 / S:.1f} ns per dependent step")
+          f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations), chain bound "
+          f"{least_ms:.4f} ms ({S} steps x {TG_LEAST_NS_PER_STEP} ns, the least step), this "
+          f"design's chain {chain_ms:.4f} ms ({TG_CHAIN_NS_PER_STEP} ns a step) on {card}; "
+          f"M={M} steps={S} p={p}, {ms * 1e6 / S:.1f} ns per dependent step, "
+          f"{ms / least_ms:.2f}x the chain bound, {ms / chain_ms:.2f}x this design's chain, "
+          f"{ms / b_ms:.1f}x the byte bound")
     return {"name": "tg_pass", "route": "cuda", "source": "src/repro_torch/kernels/csrc/tg_pass.cu",
             "replaces": "src/repro/core/truncated_gradient.py:33",
             "launches": launches.get("tg_pass", 0), "max_abs_err": err, "ms": ms,

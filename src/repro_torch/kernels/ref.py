@@ -161,52 +161,92 @@ def flash_attention_ref(q, k, v, *, causal=True):
     return torch.einsum("bhqk,bkhd->bqhd", w, v.to(torch.float32)).to(q.dtype)
 
 
-def _tree_fold(v):
-    """Sum the last axis (a power of two) as the kernels' shuffle tree
-    does: lane l adds lane l + off for off = width/2 ... 1."""
+def _pair_fold(v):
+    """Sum the last axis (a power of two) as a balanced tree of adjacent
+    pairs: ((v0 + v1) + (v2 + v3)) + ..."""
     while v.shape[-1] > 1:
-        half = v.shape[-1] // 2
-        v = v[..., :half] + v[..., half:]
+        v = v[..., 0::2] + v[..., 1::2]
     return v[..., 0]
+
+
+def _tg_order(a, threads: int, per: int):
+    """The last axis (p) of ``a`` padded with zeros to threads * per and put
+    in ``csrc/tg_pass.cu``'s sum order: position t * per + 4 g + c holds
+    coordinate j = 4 (g threads + t) + c."""
+    p = a.shape[-1]
+    a = torch.nn.functional.pad(a, (0, threads * per - p))
+    lead = a.shape[:-1]
+    return a.view(*lead, per // 4, threads, 4).transpose(-3, -2).reshape(*lead, threads * per)
 
 
 def tg_margin(x, b):
     """Plain version of ``csrc/tg_pass.cu``'s margin, in its sum order:
-    coordinate j = k * THREADS + t is thread t's k-th product; each thread
-    sums its products in k order, each warp of 32 threads by the shuffle
-    tree, and the warps' sums by the same tree padded to 32 lanes (exact
-    zeros). ``x``, ``b`` (M, p) float32 -> (M,)."""
-    from repro_torch.kernels.tg_pass import THREADS
+    with (threads, per) = ``tg_pass.launch_shape(p)``, thread t owns the
+    coordinates j = 4 (g threads + t) + c (g < per / 4, c < 4); the margin
+    is one balanced tree of adjacent pairs over the threads * per products
+    (zeros past p) in the order t * per + 4 g + c. ``x``, ``b`` (M, p)
+    float32 -> (M,)."""
+    from repro_torch.kernels.tg_pass import launch_shape
 
-    M, p = x.shape
-    per = max(1, -(-p // THREADS))
-    prod = torch.nn.functional.pad(x * b, (0, per * THREADS - p)).view(M, per, THREADS)
-    v = prod[:, 0]
-    for k in range(1, per):
-        v = v + prod[:, k]
-    warps = _tree_fold(v.view(M, THREADS // 32, 32))
-    return _tree_fold(torch.nn.functional.pad(warps, (0, 32 - warps.shape[-1])))
+    shape = launch_shape(max(x.shape[-1], 1))
+    return _pair_fold(_tg_order(x * b, *shape))
+
+
+#: ``csrc/tg_pass.cu``'s sigmoid constants, exact float32 values: log2(e),
+#: ln 2 in two parts, the clamp of -|m|, the least |m| whose exp(-|m|)
+#: rounds to 0, and the degree-6 polynomial for exp on [-ln2/2, ln2/2]
+TG_L2E, TG_LN2_HI, TG_LN2_LO = 1.4426950216293335, 0.693145751953125, 1.428606765330187e-06
+TG_X_CLAMP, TG_M_ZERO = -103.5, 103.97208404541016
+TG_POLY = (1.0, 1.0, 0.49999991059303284, 0.16666419804096222, 0.04166822507977486,
+           0.008374832570552826, 0.001383682363666594)
+
+
+def tg_sigmoid(m):
+    """Plain version of ``csrc/tg_pass.cu``'s sigmoid, op for op in float32:
+    e = exp(-|m|) by k = rint(x log2 e) (x = max(-|m|, -103.5)), r = (x - k
+    ln2_hi) - k ln2_lo, a degree-6 polynomial in Estrin's order and one
+    rounding of the product with 2^k (subnormals included); then 1 / (1 +
+    e) for m >= 0 and e / (1 + e) below (0 past 150 ln 2). Every step is a
+    correctly rounded IEEE operation, so the card and the host give the
+    same bits; within 3 ulps of float64."""
+    c0, c1, c2, c3, c4, c5, c6 = TG_POLY
+    x = torch.clamp(-m.abs(), min=TG_X_CLAMP)
+    k = torch.round(x * TG_L2E)
+    r = (x - k * TG_LN2_HI) - k * TG_LN2_LO
+    r2 = r * r
+    r4 = r2 * r2
+    q = ((c0 + c1 * r) + (c2 + c3 * r) * r2) + ((c4 + c5 * r) + c6 * r2) * r4
+    ki = k.to(torch.int32)
+    # the branch where() drops may shift out of range; its bits are unused
+    s = torch.where(ki >= -126, (ki + 127) << 23, torch.ones_like(ki) << (ki + 149))
+    e = q * s.view(torch.float32)
+    num = torch.where(m >= 0, 1.0, torch.where(m <= -TG_M_ZERO, 0.0, e))
+    return num / (1.0 + e)
 
 
 def tg_pass_ref(Xs, ys, beta, eta: float, shrink: float, theta: float):
     """Plain version of kernels.tg_pass: one truncated-gradient pass per
     machine from the shared warm start ``beta`` (p,) over Xs (M, steps, p)
     and ys (M, steps); returns (M, p). Per example, as the reference's
-    ``_tg_pass`` writes it: g = sigmoid(x.beta) - (y+1)/2, beta -= eta (g
-    x), then where(|beta| <= theta, sign(beta) max(|beta| - shrink, 0),
-    beta) with shrink = eta * gravity. The margin is :func:`tg_margin`'s
-    fixed order and the sigmoid's exp is taken in double, as the kernel
-    takes them, so the two agree though the pass is chaotic."""
-    Xs = Xs.to(torch.float32)
-    ys = ys.to(torch.float32)
+    ``_tg_pass`` writes it: g = sigmoid(x.beta) - (y+1)/2, beta -= (eta g)
+    x, then where(|beta| <= theta, copysign(max(|beta| - shrink, 0),
+    beta), beta) with shrink = eta * gravity. The margin is
+    :func:`tg_margin`'s fixed order (X and beta are kept in that order for
+    the whole pass) and the sigmoid :func:`tg_sigmoid`'s float32 sequence,
+    as the kernel takes them, so the two agree though the pass is chaotic."""
+    from repro_torch.kernels.tg_pass import launch_shape
+
     M, steps, p = Xs.shape
-    b = beta.to(torch.float32).expand(M, p).clone()
-    one = torch.ones((), dtype=torch.float32, device=Xs.device)
+    threads, per = launch_shape(max(p, 1))
+    Xo = _tg_order(Xs.to(torch.float32), threads, per)
+    b = _tg_order(beta.to(torch.float32).expand(M, p), threads, per)
+    yh = (ys.to(torch.float32) + 1.0) * 0.5
     for i in range(steps):
-        x = Xs[:, i]
-        e = torch.exp(-tg_margin(x, b).double()).to(torch.float32)
-        g = one / (one + e) - (ys[:, i] + 1.0) * 0.5
-        b = b - eta * (g[:, None] * x)
-        a = b.abs()
-        b = torch.where(a <= theta, torch.sign(b) * torch.clamp_min(a - shrink, 0.0), b)
-    return b
+        x = Xo[:, i]
+        c = eta * (tg_sigmoid(_pair_fold(x * b)) - yh[:, i])
+        bb = b - c[:, None] * x
+        trunc = torch.copysign((bb.abs() - shrink).clamp_min(0.0), bb)
+        # with theta = +inf the where keeps trunc everywhere (NaN included)
+        b = trunc if theta == float("inf") else torch.where(bb.abs() <= theta, trunc, bb)
+    b = b.view(M, threads, per // 4, 4).transpose(1, 2).reshape(M, threads * per)
+    return b[:, :p].contiguous()

@@ -9,19 +9,25 @@ of about seven launches per example -- some 140,000 launches for one pass
 over the epsilon cell (n = 320,000, 16 machines) -- so the port gives the
 whole pass one launch; source ``csrc/tg_pass.cu``.
 
-Bound on the H100: the chain of ``steps`` dependent block reductions
-(each step's dot product feeds the next step's update). Its bytes, X read
-once, are far below that. The design: one thread block of ``THREADS``
-threads per machine, beta in registers (``per`` coordinates a thread,
-:func:`regs_per_thread`), the next row prefetched while the current step
-reduces, the margin summed in a fixed order (each thread's coordinates in
-order, then a shuffle tree per warp, then the same tree over the warps'
-sums), one barrier per step, and no atomics: two launches are bit-equal.
+Bound on the H100: the chain of ``steps`` dependent steps, each a dot over
+p reduced to a value every thread holds, a sigmoid and an update. From the
+latencies ``scripts/tg_step_probe.cu`` measures, the least such step at p
+= 2000 takes about 159 ns (3.2 ms for an epsilon pass) with the hardware
+exp and one division, and this design's chain about 172 ns (3.4 ms), its
+float sigmoid being one the host repeats bit for bit; X read once (0.77
+ms) is below both. The design: one block per machine (128 consumer threads, 256 past p
+= 4096: :func:`launch_shape`, and one producer warp), beta in registers,
+rows streamed several steps ahead into a shared-memory ring by 1-D TMA
+(4-byte ``cp.async`` when p % 4 != 0), the margin summed as one balanced
+tree of adjacent pairs (each thread's products, xor shuffles over groups
+of threads, the group sums across the step's one barrier), and a sigmoid
+made of correctly rounded float32 operations (``ref.tg_sigmoid``). No
+atomics: two launches are bit-equal.
 
 The pass is chaotic at epsilon's width (a rounding difference in one
 margin grows to 1e-1 in beta within a pass), so the plain version
-(``ref.tg_pass_ref``) repeats the kernel's sum order and rounding op for
-op, and both take exp in double: the card and the host then agree.
+(``ref.tg_pass_ref``) repeats the kernel's sum order and every rounding
+op for op: the card and the host agree bit for bit.
 """
 from __future__ import annotations
 
@@ -29,12 +35,11 @@ import ctypes
 
 import torch
 
-#: threads per block (THREADS in the source)
-THREADS = 512
-#: instantiated registers-per-thread counts (template values of the source)
-PER_CHOICES = (1, 2, 4, 8, 16)
+#: instantiated launch shapes (threads per block, coordinates per thread),
+#: narrowest first (template values of the source)
+SHAPES = ((128, 4), (128, 8), (128, 16), (128, 32), (256, 32))
 #: the widest beta a block holds on chip
-MAX_P = THREADS * PER_CHOICES[-1]
+MAX_P = SHAPES[-1][0] * SHAPES[-1][1]
 
 #: launches of the kernel since the last reset (see kernels.ops)
 launches = 0
@@ -47,13 +52,13 @@ class TGWidthError(ValueError):
     (there is no fallback on the card)."""
 
 
-def regs_per_thread(p: int) -> int:
-    """The smallest instantiated count of coordinates per thread that
-    covers p."""
+def launch_shape(p: int) -> tuple:
+    """(threads, coordinates per thread) of the narrowest instantiated
+    shape that covers p; the plain version's sum order follows it."""
     if p > MAX_P:
         raise TGWidthError(f"tg_pass keeps beta on chip: p={p} is above its {MAX_P} "
-                           f"({THREADS} threads x {PER_CHOICES[-1]} registers)")
-    return next(per for per in PER_CHOICES if per * THREADS >= p)
+                           f"({SHAPES[-1][0]} threads x {SHAPES[-1][1]} registers)")
+    return next(s for s in SHAPES if s[0] * s[1] >= p)
 
 
 def _launcher():
@@ -63,7 +68,7 @@ def _launcher():
 
         lib = load("tg_pass")
         v, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tg_pass_launch.argtypes = [v, v, v, v, i, i, i, i, f, f, f, v]
+        lib.tg_pass_launch.argtypes = [v, v, v, v, i, i, i, i, i, f, f, f, v]
         lib.tg_pass_launch.restype = ctypes.c_int
         _lib = lib
     return _lib.tg_pass_launch
@@ -87,13 +92,13 @@ def tg_pass_kernel(Xs: torch.Tensor, ys: torch.Tensor, beta: torch.Tensor, eta: 
     if not (Xs.is_contiguous() and ys.is_contiguous() and beta.is_contiguous()):
         raise ValueError("Xs, ys and beta must be contiguous")
     M, steps, p = Xs.shape
-    per = regs_per_thread(p)
+    threads, per = launch_shape(p)
     out = torch.empty((M, p), dtype=torch.float32, device=Xs.device)
     if M == 0 or p == 0:
         return out
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     err = _launcher()(Xs.data_ptr(), ys.data_ptr(), beta.data_ptr(), out.data_ptr(),
-                      M, steps, p, per, eta, shrink, theta, stream)
+                      M, steps, p, threads, per, eta, shrink, theta, stream)
     if err:
         raise RuntimeError(f"tg_pass launch failed: cudaError {err}")
     launches += 1

@@ -8,8 +8,10 @@ split) drawn by numpy; both packages get the rows in the same order
 Snapshots agree within rtol 1e-4 / atol 1e-6: at p = 128 the pass is
 stable, so the two packages' different dot-product orders stay at
 rounding level. Also: ``tg_pass_ref`` against a float64 numpy loop, its
-margin's sum order against a lane-by-lane emulation of the kernel's, and
-the reference's three TG properties on the port.
+margin's sum order against a lane-by-lane emulation of the kernel's, its
+float sigmoid against float64 (in ulps) and op by op against numpy, the
+whole plain step against a numpy emulation of the kernel, and the
+reference's three TG properties on the port.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -84,28 +86,42 @@ def test_tg_pass_ref_matches_float64_loop(p, theta):
 
 def _kernel_margin(x, b):
     """The kernel's margin for one machine, lane by lane in float32: thread
-    t sums its products k = 0, 1, ... in order; each warp folds by shuffles
-    down (lane l += lane l + off, off = 16 ... 1); lane 0 of every warp
-    reads the warps' sums (zeros past the last) and folds the same way."""
-    T, f32 = tg_pass.THREADS, np.float32
-    per = -(-len(x) // T)
-    prod = np.zeros(per * T, f32)
-    prod[:len(x)] = x.astype(f32) * b.astype(f32)
-    lanes = [f32(prod[t]) for t in range(T)]
-    for k in range(1, per):
-        lanes = [f32(lanes[t] + prod[k * T + t]) for t in range(T)]
+    t holds the products of coordinates j = 4 (g T + t) + c (g < per / 4,
+    c < 4; zeros past p) and folds them by adjacent pairs; LEVELS rounds of
+    xor shuffles (lane l += lane l ^ o, o = 1, 2, ...) fold groups of
+    2^LEVELS lanes; every lane stores its group's sum in slot t >> LEVELS
+    of the 16 shared ones; each thread folds the 16 slots by adjacent
+    pairs."""
+    f32 = np.float32
+    T, per = tg_pass.launch_shape(len(x))
+    levels = int(np.log2(T // 16))
 
-    def warp_fold(v):
+    def fold(v):
         v = list(v)
-        for off in (16, 8, 4, 2, 1):
-            v = [f32(v[i] + v[i + off]) if i + off < 32 else v[i] for i in range(32)]
+        w = 1
+        while w < len(v):
+            for n in range(0, len(v), 2 * w):
+                v[n] = f32(v[n] + v[n + w])
+            w *= 2
         return v[0]
 
-    sums = [warp_fold(lanes[w * 32:(w + 1) * 32]) for w in range(T // 32)]
-    return warp_fold(sums + [f32(0)] * (32 - len(sums)))
+    def coord(t, n):
+        j = 4 * ((n // 4) * T + t) + n % 4
+        return f32(x[j]) * f32(b[j]) if j < len(x) else f32(0)
+
+    lanes = [fold([coord(t, n) for n in range(per)]) for t in range(T)]
+    for lev in range(levels):
+        o = 1 << lev
+        lanes = [f32(lanes[t] + lanes[t ^ o]) for t in range(T)]
+    slots = [None] * 16
+    for t in range(T):
+        g = t >> levels
+        assert slots[g] is None or slots[g].view(np.int32) == lanes[t].view(np.int32)
+        slots[g] = lanes[t]
+    return fold(slots)
 
 
-@pytest.mark.parametrize("p", [1, 37, 512, 2000, 4099])
+@pytest.mark.parametrize("p", [1, 37, 512, 2000, 4099, 8192])
 def test_margin_sum_order_is_the_kernels(p):
     """The plain version's margin equals the kernel's sum order bit for bit
     (the pass is chaotic at epsilon's width, so the card is held to this
@@ -118,11 +134,83 @@ def test_margin_sum_order_is_the_kernels(p):
     np.testing.assert_array_equal(got, want)
 
 
+def _margins(seed):
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.uniform(-1, 1, 20000), rng.uniform(-20, 20, 40000), rng.uniform(-110, 110, 40000),
+        np.linspace(-110, 110, 20001),
+        [0.0, -0.0, 1e-30, -1e-30, 87.0, -87.0, 103.97, -103.97, -103.97207641601562,
+         -103.97208404541016, -104.0, -200.0, 200.0, 1e30, -1e30]]).astype(np.float32)
+
+
+def test_tg_sigmoid_within_3_ulps():
+    """The kernel's float sigmoid is at most 3 ulps from the correctly
+    rounded float32 value of 1 / (1 + exp(-m)) (taken in float64) at every
+    margin a pass can see, subnormal results and the 0 / 1 tails included."""
+    m = _margins(5)
+    got = ref.tg_sigmoid(torch.from_numpy(m)).numpy()
+    with np.errstate(over="ignore"):
+        want = (1.0 / (1.0 + np.exp(-m.astype(np.float64)))).astype(np.float32)
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 3, (ulps.max(), m[np.argmax(ulps)])
+    assert np.mean(ulps == 0) > 0.6
+
+
+def _numpy_sigmoid(m):
+    """``csrc/tg_pass.cu``'s tg_sigmoid op for op in numpy float32."""
+    f32 = np.float32
+    c = [f32(v) for v in ref.TG_POLY]
+    x = np.maximum(-np.abs(m), f32(ref.TG_X_CLAMP))
+    k = np.rint(x * f32(ref.TG_L2E))
+    r = (x - k * f32(ref.TG_LN2_HI)) - k * f32(ref.TG_LN2_LO)
+    r2 = r * r
+    a0, a1, a2 = c[0] + c[1] * r, c[2] + c[3] * r, c[4] + c[5] * r
+    r4 = r2 * r2
+    q = (a0 + a1 * r2) + (a2 + c[6] * r2) * r4
+    ki = k.astype(np.int32)
+    nb = np.maximum(ki + 127, 0) << 23
+    sb = np.left_shift(np.int32(1), np.clip(ki + 149, 0, 30)).astype(np.int32)
+    e = q * np.where(ki >= -126, nb, sb).astype(np.int32).view(f32)
+    num = np.where(m >= 0, f32(1), np.where(m <= -f32(ref.TG_M_ZERO), f32(0), e))
+    return (num / (f32(1) + e)).astype(f32)
+
+
+def test_tg_sigmoid_is_the_kernels_float_sequence():
+    m = _margins(6)
+    got = ref.tg_sigmoid(torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), _numpy_sigmoid(m).view(np.int32))
+
+
+@pytest.mark.parametrize("p,theta", [(37, INF), (37, 0.05), (600, INF)])
+def test_plain_pass_is_the_numpy_emulation(p, theta):
+    """``tg_pass_ref`` step by step against an emulation of the kernel in
+    numpy float32: the lane-by-lane margin, the float sigmoid, c = eta g
+    once, beta - c x and the truncation; bit for bit over 12 steps."""
+    f32 = np.float32
+    rng = np.random.default_rng(p)
+    Xs = rng.standard_normal((2, 12, p)).astype(f32)
+    ys = np.where(rng.random((2, 12)) < 0.5, 1.0, -1.0).astype(f32)
+    beta = (0.3 * rng.standard_normal(p)).astype(f32)
+    eta, shrink = f32(0.5), f32(tg_shrink(0.5, 2e-2))
+    got = ref.tg_pass_ref(torch.from_numpy(Xs), torch.from_numpy(ys), torch.from_numpy(beta),
+                          float(eta), float(shrink), theta).numpy()
+    for m in range(2):
+        b = beta.copy()
+        for x, y in zip(Xs[m], ys[m]):
+            margin = np.array([_kernel_margin(x, b)], f32)
+            c = eta * (_numpy_sigmoid(margin)[0] - (y + f32(1)) * f32(0.5))
+            bb = b - c * x
+            trunc = np.copysign(np.maximum(np.abs(bb) - shrink, f32(0)), bb)
+            b = np.where(np.abs(bb) <= f32(theta), trunc, bb).astype(f32)
+        np.testing.assert_array_equal(got[m].view(np.int32), b.view(np.int32))
+
+
 def test_width_limit_is_typed():
-    assert tg_pass.regs_per_thread(2000) == 4
-    assert tg_pass.regs_per_thread(4099) == 16
+    assert tg_pass.launch_shape(2000) == (128, 16)
+    assert tg_pass.launch_shape(4099) == (256, 32)
+    assert tg_pass.launch_shape(8192) == (256, 32)
     with pytest.raises(tg_pass.TGWidthError, match="8193"):
-        tg_pass.regs_per_thread(tg_pass.MAX_P + 1)
+        tg_pass.launch_shape(tg_pass.MAX_P + 1)
 
 
 def test_fit_takes_a_generator_and_reads_nothing(problem):
