@@ -164,14 +164,36 @@ of which fails the run with a non-zero exit:
    both: relative objective gaps < 1e-4, and after a fixed 8 iterations
    (both sides taking the same steps) betas within rtol 1e-2 / atol 1e-3;
    the slab-native card fit under torch's sync debug mode synchronises
-   only through the engine's door; then paths (``path_len`` 6) on the
-   card against the CPU: 8192 x 4096 slabs on a (1, 16) mesh, flat and
-   bucketed, and a local dense 8192 x 2000 path: per point lambda within
+   only through the engine's door; then paths on the card against the
+   CPU: 8192 x 4096 slabs on a (1, 16) mesh, flat and bucketed
+   (``path_len`` 4), and a local dense 8192 x 2000 path (``path_len`` 6): per point lambda within
    rtol 1e-6 and a relative f gap < 1e-4, betas within rtol 1e-2 / atol
    1e-3 where the support is at most n / 8, and nnz, active, capacity,
    KKT rounds and the beta gap side by side; the flat path's CPU run also
    against a densify-once CPU path (two plain solvers, no card: the
    spread of beta at the same objective deeper on the path);
+9a. process mesh -- d-GLMNET across ``torch.distributed`` ranks
+   (``launch.mesh.ProcMesh``): gloo sums and broadcasts a CUDA tensor
+   between two spawned ranks; a one-rank NCCL mesh (1, 16) fits the
+   webspam-shaped cell with phase 7's lambda and options (sequential)
+   bit-equal to phase 7's fit (betas and history), at iterations + 2
+   host reads, under sync debug mode nothing synchronising but the
+   engine's door, every kernel of the path launched; then four
+   co-located gloo ranks (spawned ``--mesh-rank`` processes, each under
+   a deadline), a (2, 16) mesh of 2 data x 2 model ranks of 8 blocks,
+   each drawing the cells from their seeds and keeping its shard: the
+   cell as (p, 2, K') slabs fitted for a fixed 8 iterations, twice,
+   against phase 7's fit cut at 8 (objective gap < 1e-4, betas within
+   rtol 1e-2 / atol 1e-3; the ranks' betas and histories bit-equal, the
+   two runs' equality reported; each kernel launched on every rank in
+   every iteration); the epsilon cell on (2, 16) against phase 4's
+   sequential fit (gap < 1e-4); a 3-point path (lambda_max/2 ... /8) on
+   (2, 16), every point OK, the independent KKT pass of phase 8 at each
+   point and each f within 1e-4 of phase 8's. Prints, per rank, the
+   wall and ms per iteration, the collectives per iteration and their
+   bytes, peak memory, and the card's name and power limit (co-located
+   gloo ranks stage every collective through the host and share one
+   card: not a multi-card speed);
 10. LM kernels -- ``flash_attention`` against its plain version at the
    serving cell's attention shape (B=8, S=2048, H=32, Hk=4, D=64), one
    Hk == H shape and the reference's sweep shapes, in float32 (atol 2e-5)
@@ -254,6 +276,7 @@ import traceback
 import warnings
 from collections import Counter
 from dataclasses import replace
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -1132,7 +1155,7 @@ def phase_sparse_path(torch, cell, card):
               f"sparse {mode}: {syncs} host reads, expected {res.n_iters} iterations + 1 "
               f"fetch + 1 entry read")
         check(acc > 0.5, f"sparse {mode}: held-out accuracy {acc} is not above chance")
-        fits[mode] = (wall, res.n_iters, syncs, peak, res.f, res.beta)
+        fits[mode] = (wall, res.n_iters, syncs, peak, res.f, res.beta, res.objective_history)
     return launches, fits, lam
 
 
@@ -1505,9 +1528,10 @@ def phase_path(torch, cell, card, direct):
 
 def phase_path_agreement(torch, n: int = 8192, p: int = 4096, n_dense: int = 10_240):
     """Paths on the card against the same paths on the CPU (the plain
-    versions), ``path_len`` 6, as a user runs them: an 8192 x 4096 slab
-    path on a (1, 16) mesh, flat and bucketed (``to_slab_buckets``), and
-    a local dense path on 8192 x 2000. Per point: lambda within rtol 1e-6
+    versions), as a user runs them: an 8192 x 4096 slab path on a (1, 16)
+    mesh, flat and bucketed (``to_slab_buckets``), ``path_len`` 4 (the
+    CPU's match join makes each deeper point dearer), and a local dense
+    path on 8192 x 2000, ``path_len`` 6. Per point: lambda within rtol 1e-6
     and a relative f gap < 1e-4; nnz, active, capacity, KKT rounds and the
     largest beta gap side by side; betas within rtol 1e-2 / atol 1e-3 at
     the points whose support (nnz) is at most n / 8, at least eight
@@ -1534,11 +1558,11 @@ def phase_path_agreement(torch, n: int = 8192, p: int = 4096, n_dense: int = 10_
     opts = DGLMNETOptions(tile=128, block=16, max_iters=100)
     cpu_mesh = make_dev_mesh(1, SPARSE_M, device="cpu")
     cases = [
-        ("slab (1, 16) flat", SlabDesign(rows, vals, n), y, opts, True),
+        ("slab (1, 16) flat", SlabDesign(rows, vals, n), y, opts, True, 4),
         (f"slab (1, 16) bucketed (K classes {buckets.k_classes})",
-         BucketedSlabDesign(buckets, n), y, opts, True),
+         BucketedSlabDesign(buckets, n), y, opts, True, 4),
         (f"dense local {ds.X_train.shape[0]}x{ds.X_train.shape[1]}", DenseDesign(ds.X_train),
-         ds.y_train, replace(opts, num_blocks=16), False),
+         ds.y_train, replace(opts, num_blocks=16), False, 6),
     ]
 
     def hold(label, a_path, b_path, names, n_rows, betas=True):
@@ -1561,14 +1585,14 @@ def phase_path_agreement(torch, n: int = 8192, p: int = 4096, n_dense: int = 10_
                       f"{label} point {i}: {names} betas disagree beyond rtol 1e-2 / atol 1e-3")
         check(held or not betas, f"{label}: no point's support is within n / 8")
 
-    for label, design, yv, o, on_mesh in cases:
+    for label, design, yv, o, on_mesh, path_len in cases:
         t0 = time.perf_counter()
         gpu = LogisticL1(o, mesh=make_dev_mesh(1, SPARSE_M) if on_mesh else None,
-                         device="cuda").path(design, yv, path_len=6)
+                         device="cuda").path(design, yv, path_len=path_len)
         t_gpu = time.perf_counter() - t0
         t0 = time.perf_counter()
         cpu_est = LogisticL1(o, mesh=cpu_mesh if on_mesh else None, device="cpu")
-        cpu = cpu_est.path(design.to("cpu"), yv.cpu(), path_len=6)
+        cpu = cpu_est.path(design.to("cpu"), yv.cpu(), path_len=path_len)
         # allow[torch-bench-timing]: the card path's last point ends in a counted host read after its last launch; the CPU path is host work
         t_cpu = time.perf_counter() - t0
         print(f"[path-agree] {label}: card {t_gpu:.1f} s, cpu {t_cpu:.1f} s")
@@ -1576,10 +1600,371 @@ def phase_path_agreement(torch, n: int = 8192, p: int = 4096, n_dense: int = 10_
               f"{list(cpu.statuses)}")
         hold(label, gpu, cpu, "card / cpu", design.shape[0])
         if label.endswith("flat"):
-            dense = cpu_est.path(design.to("cpu"), yv.cpu(), path_len=6, densify=True)
+            dense = cpu_est.path(design.to("cpu"), yv.cpu(), path_len=path_len, densify=True)
             check(dense.all_ok, f"{label}: a densify-once cpu point tripped")
             hold(f"{label}, cpu only", cpu, dense, "cpu slab-native / cpu densify-once",
                  design.shape[0], betas=False)
+
+
+# ---------------------------------------------------------------------------
+# the process mesh: d-GLMNET across torch.distributed ranks on one card
+# ---------------------------------------------------------------------------
+
+#: the (2, 16) mesh: 2 example shards x 2 model ranks, 8 feature blocks each
+PM_DATA, PM_WORLD = 2, 4
+PM_ITERS = 8
+PM_PATH_LEN = 3
+#: seconds a spawn of ranks may take before the run fails
+PM_DEADLINE = 420
+PM_KERNELS = ("logistic_stats", "slab_gram", "slab_spmv", "gram_cd")
+
+
+def split_examples(torch, rows, vals, n: int, dp: int):
+    """(p, 1, K) slabs of row-sorted, front-packed slots (sentinel n) ->
+    (p, dp, K') slabs of dp contiguous example shards, local rows
+    (sentinel n / dp), front-packed: the layout a process mesh of data
+    extent dp takes."""
+    n_loc = n // dp
+    r, v = rows[:, 0], vals[:, 0]
+    shard = torch.where(r < n, torch.div(r, n_loc, rounding_mode="floor"), dp)
+    counts = [(shard == s).sum(1) for s in range(dp)]
+    k2 = int(max(int(c.max()) for c in counts))
+    ar = torch.arange(k2, device=r.device)
+    off = torch.zeros_like(counts[0])
+    parts_r, parts_v = [], []
+    for s in range(dp):
+        idx = (off[:, None] + ar).clamp_max(r.shape[1] - 1)
+        live = ar[None, :] < counts[s][:, None]
+        parts_r.append(torch.where(live, r.gather(1, idx) - s * n_loc, n_loc).to(torch.int32))
+        parts_v.append(torch.where(live, v.gather(1, idx), 0.0))
+        off = off + counts[s]
+    return torch.stack(parts_r, 1), torch.stack(parts_v, 1)
+
+
+def _rank_run(torch, est, data, y, lam, mesh, **kw):
+    """One fit or path on a rank with its counters zeroed just before and
+    read just after: (result, wall s, host reads, launches, collectives,
+    peak GB)."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    mesh.reset_stats()
+    engine.host_syncs = 0
+    t0 = time.perf_counter()
+    res = (est.path(data, y, path_len=kw["path_len"]) if "path_len" in kw
+           else est.fit(data, y, lam))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, wall, engine.host_syncs, dict(ops.launch_counts()), mesh.stats(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def mesh_rank_main(work: Path, rank: int) -> int:
+    """A rank spawned by :func:`phase_process_mesh` (``--mesh-rank``): reads
+    ``spec.json`` in ``work``, writes ``rank<r>.json`` (and the betas it
+    is asked for) there."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.api import DenseDesign, LogisticL1, ShardedDesign, SlabDesign
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.launch.mesh import init_process_mesh
+
+    spec = json.loads((work / "spec.json").read_text())
+    dev, world = spec["device"], spec["world"]
+    store = f"file://{work}/store"
+    out = {"rank": rank}
+    if spec["task"] == "gloo":
+        # gloo on CUDA tensors between two processes: a sum and a broadcast
+        dist.init_process_group("gloo", init_method=store, world_size=world, rank=rank,
+                                timeout=timedelta(seconds=120))
+        t = torch.full((1 << 16,), float(rank + 1), device=dev)
+        dist.all_reduce(t)
+        b = torch.full((1 << 16,), float(rank + 1), device=dev)
+        dist.broadcast(b, src=world - 1)
+        out.update(sum_ok=bool((t == world * (world + 1) / 2).all()),
+                   bcast_ok=bool((b == world).all()), device=str(t.device))
+        dist.destroy_process_group()
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+        return 0
+    mesh = init_process_mesh(PM_DATA, SPARSE_M, backend="gloo", init_method=store,
+                             world_size=world, rank=rank, device=dev,
+                             timeout=timedelta(seconds=180))
+    out["coords"] = (mesh.data_rank, mesh.model_rank, mesh.local_blocks)
+    (rows, vals, y), _ = sparse_cell(torch, dev=dev, p=spec["p"])
+    n = y.shape[0]
+    rows2, vals2 = split_examples(torch, rows, vals, n, PM_DATA)
+    del rows, vals
+    design = ShardedDesign(SlabDesign(rows2, vals2, n), mesh, tile=SPARSE_OPTS["tile"])
+    out["k2"] = int(rows2.shape[2])
+    del rows2, vals2
+    torch.cuda.empty_cache()
+    opts = DGLMNETOptions(cycle_mode="sequential", **{**SPARSE_OPTS, "max_iters": PM_ITERS})
+    est = LogisticL1(opts, mesh=mesh, device=dev)
+    out["sparse"] = []
+    for run in range(2):
+        res, wall, reads, counts, stats, peak = _rank_run(torch, est, design, y,
+                                                          spec["sparse_lam"], mesh)
+        np.save(work / f"sparse{run}_r{rank}.npy", res.beta.cpu().numpy())
+        out["sparse"].append(dict(wall=wall, iters=res.n_iters, status=res.status,
+                                  hist=res.objective_history, reads=reads, counts=counts,
+                                  stats=stats, peak=peak))
+    path_opts = DGLMNETOptions(cycle_mode="sequential", **SPARSE_OPTS)
+    with PathLog() as log:
+        res, wall, reads, counts, stats, peak = _rank_run(
+            torch, LogisticL1(path_opts, mesh=mesh, device=dev), design, y, None, mesh,
+            path_len=PM_PATH_LEN)
+    np.save(work / f"path_r{rank}.npy", res.betas.cpu().numpy())
+    if rank == 0:
+        np.save(work / "path_masks.npy", torch.stack(log.masks).cpu().numpy())
+    out["path"] = dict(wall=wall, f=[float(v) for v in res.f],
+                       lams=[float(v) for v in res.lambdas],
+                       statuses=[int(v) for v in res.statuses],
+                       active=[int(pt.screen["active"]) for pt in res],
+                       solves=len(log.rows), iters=sum(s["iters"] for s in log.rows),
+                       reads=reads, counts=counts, stats=stats, peak=peak)
+    del design, est, y, res
+    torch.cuda.empty_cache()
+    from repro_torch.configs.glm import GLM_EPSILON
+    from repro_torch.data.synthetic import make_glm_dataset
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ds = make_glm_dataset(replace(GLM_EPSILON, num_examples=spec["eps_n"]), gen, device=dev)
+    design = ShardedDesign(DenseDesign(ds.X_train), mesh, tile=128)
+    y = ds.y_train
+    del ds
+    torch.cuda.empty_cache()
+    opts = DGLMNETOptions(num_blocks=SPARSE_M, tile=128, max_iters=100,
+                          cycle_mode="sequential", block=16)
+    res, wall, reads, counts, stats, peak = _rank_run(
+        torch, LogisticL1(opts, mesh=mesh, device=dev), design, y, spec["eps_lam"], mesh)
+    np.save(work / f"dense_r{rank}.npy", res.beta.cpu().numpy())
+    out["dense"] = dict(wall=wall, iters=res.n_iters, status=res.status,
+                        hist=res.objective_history, reads=reads, counts=counts, stats=stats,
+                        peak=peak)
+    dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def spawn_ranks(work: Path, world: int, spec: dict, tag: str):
+    """Start ``world`` ranks of this script on ``spec`` and wait for them
+    under :data:`PM_DEADLINE`; past it, or on a rank's failure, kill them
+    all and fail. Returns each rank's JSON."""
+    (work / "spec.json").write_text(json.dumps({**spec, "world": world}))
+    procs = []
+    for r in range(world):
+        log = open(work / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--mesh-rank", str(r), "--mesh-work", str(work)],
+                                       stdout=log, stderr=subprocess.STDOUT), log))
+    end = time.monotonic() + PM_DEADLINE
+    late = False
+    for proc, log in procs:
+        try:
+            # allow[torch-bench-timing]: a deadline on child processes, not a timing of CUDA work
+            proc.wait(timeout=max(end - time.monotonic(), 0.1))
+        except subprocess.TimeoutExpired:
+            late = True
+            break
+    for proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    bad = [r for r, (proc, _) in enumerate(procs) if proc.returncode != 0]
+    if late or bad:
+        for r in range(world):
+            print(f"[mesh] {tag} rank {r} log tail:\n{(work / f'rank{r}.log').read_text()[-4000:]}")
+        fail(f"process mesh {tag}: " + (f"ranks past the {PM_DEADLINE} s deadline"
+                                        if late else f"ranks {bad} failed"))
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _per_iter(stats: dict, iters: int) -> str:
+    return ", ".join(f"{ax} {calls / max(iters, 1):.1f} calls ({nbytes / max(iters, 1) / 1e6:.3f} "
+                     f"MB)" for ax, (calls, nbytes) in stats.items())
+
+
+def phase_process_mesh(torch, card, cell, sparse_fit, sparse_lam: float, eps_n: int,
+                       eps_lam: float, eps_f: float, path_head):
+    """Phase 9a: d-GLMNET on a process mesh (see the module docstring).
+    ``sparse_fit`` is phase 7's sequential fit (iterations, f, beta,
+    history), ``eps_lam`` / ``eps_f`` phase 4's sequential lambda and f,
+    ``path_head`` phase 8's sequential path f at its first points; the
+    ranks draw the epsilon cell of ``eps_n`` examples from phase 4's seed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.api import LogisticL1, SlabDesign
+    from repro_torch.core import engine
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_dev_mesh, make_process_mesh
+
+    t_phase = time.perf_counter()
+    (rows, vals, y), _ = cell
+    n, p = y.shape[0], rows.shape[0]
+    launches = {}
+    print("[mesh] co-located ranks share one card and stage every gloo collective through "
+          "the host: their walls are not a multi-card speed")
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # 1. gloo reduces CUDA tensors between two spawned ranks
+        (work / "gloo").mkdir()
+        got = spawn_ranks(work / "gloo", 2, dict(task="gloo", device="cuda"), "gloo")
+        print(f"[mesh] gloo between 2 spawned ranks on {got[0]['device']}: all_reduce "
+              f"{[g['sum_ok'] for g in got]}, broadcast {[g['bcast_ok'] for g in got]}")
+        check(all(g["sum_ok"] and g["bcast_ok"] for g in got),
+              "gloo did not reduce or broadcast a CUDA tensor between two ranks")
+
+        # 2. a one-rank NCCL mesh: bit-equal to phase 7's (1, 16) fit
+        dist.init_process_group("nccl", init_method=f"file://{work}/nccl", world_size=1,
+                                rank=0, timeout=timedelta(seconds=120))
+        try:
+            mesh = make_process_mesh(1, SPARSE_M, backend="nccl", device="cuda")
+            t = torch.ones(4, device="cuda")
+            dist.all_reduce(t)
+            opts = DGLMNETOptions(cycle_mode="sequential", **SPARSE_OPTS)
+            est = LogisticL1(opts, mesh=mesh, device="cuda")
+            design = SlabDesign(rows, vals, n)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            engine.host_syncs = 0
+            t0 = time.perf_counter()
+            res, sites, stacks = under_sync_debug(torch, lambda: est.fit(design, y, sparse_lam))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, reads = ops.launch_counts(), engine.host_syncs
+        finally:
+            dist.destroy_process_group()
+        iters, f7, beta7, hist7 = sparse_fit
+        same = torch.equal(res.beta, beta7) and res.objective_history == hist7
+        print(f"[mesh] one-rank NCCL mesh (1, {SPARSE_M}), backend {mesh.backend}, on the "
+              f"webspam cell: {res.n_iters} iterations, f {res.f:.6f} (phase 7 {f7:.6f}), "
+              f"bit-equal to phase 7 {same}, host reads {reads}, synchronising calls "
+              f"{dict(sites)}, {wall:.3f} s, launches {counts}, on {card}")
+        check(same, "the one-rank NCCL mesh differs from phase 7's DevMesh fit")
+        check(reads == res.n_iters + 2, f"one-rank NCCL mesh: {reads} host reads for "
+              f"{res.n_iters} iterations (+ 2 expected)")
+        check_sync_sites(sites, stacks, "mesh nccl")
+        for name in PM_KERNELS:
+            check(counts[name] >= res.n_iters, f"one-rank NCCL mesh: {name} launched "
+                  f"{counts[name]} times for {res.n_iters} iterations")
+            launches[name] = launches.get(name, 0) + counts[name]
+        del est, design
+
+        # phase 7's fit cut at PM_ITERS, the co-located mesh's reference
+        cut = LogisticL1(replace(opts, max_iters=PM_ITERS), mesh=make_dev_mesh(1, SPARSE_M),
+                         device="cuda").fit(SlabDesign(rows, vals, n), y, sparse_lam)
+
+        # 3-5. four co-located gloo ranks: the (2, 16) mesh on the cells
+        (work / "mesh").mkdir()
+        t0 = time.perf_counter()
+        got = spawn_ranks(work / "mesh", PM_WORLD,
+                          dict(task="mesh", device="cuda", p=p, sparse_lam=sparse_lam,
+                               eps_lam=eps_lam, eps_n=eps_n), "mesh")
+        spawn_s = time.perf_counter() - t0
+        mw = work / "mesh"
+        r0 = got[0]
+        for g in got:
+            d_rank, m_rank, blocks = g["coords"]
+            for i, s in enumerate(g["sparse"]):
+                print(f"[mesh] rank {g['rank']} (data {d_rank}, model {m_rank}, {blocks} "
+                      f"blocks) sparse run {i + 1}: {s['iters']} iterations, wall "
+                      f"{s['wall']:.3f} s, {s['wall'] * 1e3 / s['iters']:.1f} ms per "
+                      f"iteration, collectives per iteration {_per_iter(s['stats'], s['iters'])}, "
+                      f"host reads {s['reads']}, peak {s['peak']:.2f} GB, on {card}")
+            pth, dn = g["path"], g["dense"]
+            print(f"[mesh] rank {g['rank']} path ({PM_PATH_LEN} points): wall {pth['wall']:.3f} "
+                  f"s, {pth['solves']} solves of {pth['iters']} iterations, collectives "
+                  f"{pth['stats']}, peak {pth['peak']:.2f} GB, on {card}")
+            print(f"[mesh] rank {g['rank']} epsilon dense: {dn['iters']} iterations, wall "
+                  f"{dn['wall']:.3f} s, {dn['wall'] * 1e3 / dn['iters']:.1f} ms per iteration, "
+                  f"collectives per iteration {_per_iter(dn['stats'], dn['iters'])}, peak "
+                  f"{dn['peak']:.2f} GB, on {card}")
+        # every rank: the same bits, every kernel of the path in every iteration
+        for run in range(2):
+            b0 = np.load(mw / f"sparse{run}_r0.npy")
+            for g in got:
+                s = g["sparse"][run]
+                check(s["status"] == 0 and s["iters"] == r0["sparse"][run]["iters"],
+                      f"mesh sparse run {run + 1}: rank {g['rank']} status {s['status']}")
+                check(np.array_equal(np.load(mw / f"sparse{run}_r{g['rank']}.npy"), b0)
+                      and s["hist"] == r0["sparse"][run]["hist"],
+                      f"mesh sparse run {run + 1}: rank {g['rank']} differs from rank 0")
+                check(s["reads"] == s["iters"] + 2, f"mesh sparse: rank {g['rank']} read "
+                      f"{s['reads']} times for {s['iters']} iterations (+ 2 expected)")
+                for name in PM_KERNELS:
+                    check(s["counts"].get(name, 0) >= s["iters"],
+                          f"mesh sparse: rank {g['rank']} launched {name} "
+                          f"{s['counts'].get(name, 0)} times in {s['iters']} iterations")
+        for name in PM_KERNELS:
+            launches[name] += sum(g["sparse"][0]["counts"].get(name, 0) for g in got)
+        b1, b2 = np.load(mw / "sparse0_r0.npy"), np.load(mw / "sparse1_r0.npy")
+        runs_equal = np.array_equal(b1, b2) and r0["sparse"][0]["hist"] == r0["sparse"][1]["hist"]
+        beta_m = torch.from_numpy(b1)
+        f_m = r0["sparse"][0]["hist"][-1]
+        gap = abs(f_m - cut.f) / abs(cut.f)
+        print(f"[mesh] (2, {SPARSE_M}) on 4 co-located gloo ranks, slabs (p, 2, "
+              f"{r0['k2']}): f {f_m:.6f} after {r0['sparse'][0]['iters']} iterations against "
+              f"phase 7's fit cut at {cut.n_iters} f {cut.f:.6f}: rel gap {gap:.3g}, max|dbeta| "
+              f"{max_err(beta_m, cut.beta.cpu()):.3g}; ranks bit-equal; the two runs "
+              f"bit-equal {runs_equal}")
+        check(gap < 1e-4, f"mesh sparse vs phase 7 cut at {PM_ITERS}: rel gap {gap}")
+        check(torch.allclose(beta_m, cut.beta.cpu(), rtol=1e-2, atol=1e-3),
+              "mesh sparse betas disagree with phase 7's cut beyond rtol 1e-2 / atol 1e-3")
+        check(runs_equal or torch.allclose(torch.from_numpy(b2), beta_m, rtol=1e-2, atol=1e-3),
+              "the mesh's two sparse runs disagree beyond rtol 1e-2 / atol 1e-3")
+        # 4. the epsilon dense cell against phase 4's sequential fit
+        d0 = np.load(mw / "dense_r0.npy")
+        for g in got:
+            check(g["dense"]["status"] == 0 and np.array_equal(
+                np.load(mw / f"dense_r{g['rank']}.npy"), d0)
+                and g["dense"]["hist"] == r0["dense"]["hist"],
+                f"mesh dense: rank {g['rank']} tripped or differs from rank 0")
+            for name in ("logistic_stats", "gram_cd"):
+                check(g["dense"]["counts"].get(name, 0) >= g["dense"]["iters"],
+                      f"mesh dense: rank {g['rank']} launched {name} too few times")
+                launches[name] += g["dense"]["counts"].get(name, 0)
+        f_d = r0["dense"]["hist"][-1]
+        gap = abs(f_d - eps_f) / abs(eps_f)
+        print(f"[mesh] epsilon dense on (2, {SPARSE_M}): f {f_d:.6f} ({r0['dense']['iters']} "
+              f"iterations) against phase 4's {eps_f:.6f}: rel gap {gap:.3g}")
+        check(gap < 1e-4, f"mesh dense vs phase 4: rel gap {gap}")
+        # 5. the path: every point OK, certified, and at phase 8's objective
+        pth = r0["path"]
+        betas = np.load(mw / "path_r0.npy")
+        masks = torch.from_numpy(np.load(mw / "path_masks.npy")).cuda()
+        for g in got:
+            check(np.array_equal(np.load(mw / f"path_r{g['rank']}.npy"), betas)
+                  and g["path"]["f"] == pth["f"],
+                  f"mesh path: rank {g['rank']} differs from rank 0")
+            for name in PM_KERNELS:
+                check(g["path"]["counts"].get(name, 0) >= g["path"]["iters"],
+                      f"mesh path: rank {g['rank']} launched {name} too few times")
+                launches[name] += g["path"]["counts"].get(name, 0)
+        check(all(s == 0 for s in pth["statuses"]), f"mesh path: statuses {pth['statuses']}")
+        for i in range(PM_PATH_LEN):
+            beta = torch.from_numpy(betas[i]).cuda()
+            (out_bad, out_ratio), (in_bad, in_ratio) = kkt_recheck(
+                torch, rows, vals, y, beta, pth["lams"][i], masks[i])
+            rel = abs(pth["f"][i] - path_head[i]) / abs(path_head[i])
+            print(f"[mesh] path point {i}: lam {pth['lams'][i]:.6f} active {pth['active'][i]} f "
+                  f"{pth['f'][i]:.4f} (phase 8 {path_head[i]:.4f}, rel gap {rel:.3g}); KKT "
+                  f"outside the working set {out_bad} over (max |g|/lam {out_ratio:.6f}), inside "
+                  f"{in_bad}")
+            check(out_bad == 0, f"mesh path point {i}: {out_bad} discarded features fail KKT")
+            check(rel <= 1e-4, f"mesh path point {i}: f {pth['f'][i]} vs phase 8 {path_head[i]}")
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s (the 4-rank spawn {spawn_s:.1f} "
+          f"s), on {card}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3411,7 +3796,12 @@ def main() -> int:
                     help="time only the sparse cell's fits, tile loop and margins product")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the src directory whose repro_torch is driven (--sparse-host)")
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-work", type=Path, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        # a rank of phase 9a, spawned by phase_process_mesh
+        return mesh_rank_main(args.mesh_work, args.mesh_rank)
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
     sys.path.insert(0, str(args.src.resolve() if args.sparse_host else ROOT / "src"))
@@ -3440,13 +3830,15 @@ def main() -> int:
     for name, count in sparse_launches.items():
         launches[name] = launches.get(name, 0) + count
     path_launches, path_walls = phase_path(
-        torch, cell, card, {mode: (sparse_lam, *fit[4:]) for mode, fit in sparse_fits.items()})
+        torch, cell, card, {mode: (sparse_lam, *fit[4:6]) for mode, fit in sparse_fits.items()})
     for name, count in path_launches.items():
         launches[name] = launches.get(name, 0) + count
     stream_launches, stream_runs = phase_streamed_path(torch, cell, card)
     for name, count in stream_launches.items():
         launches[name] = launches.get(name, 0) + count
     seq_path = path_walls["sequential"].pop("result")
+    path_head = list(seq_path.f[:PM_PATH_LEN])
+    eps_f = main_results["sequential"].f
     launches["slab_path_spmv"], serve_stats = phase_serve(torch, card, seq_path)
     path_walls["blocked"].pop("result")
     chaos_launches, chaos = phase_chaos(torch, card, ds, lam, main_results, cell, seq_path,
@@ -3458,6 +3850,13 @@ def main() -> int:
         r.pop("host_buckets")
     phase_sparse_agreement(torch)
     phase_path_agreement(torch)
+    fit7 = sparse_fits["sequential"]
+    from repro_torch.configs.glm import GLM_EPSILON
+
+    mesh_launches = phase_process_mesh(torch, card, cell, (fit7[1], *fit7[4:]), sparse_lam,
+                                       GLM_EPSILON.num_examples, lam, eps_f, path_head)
+    for name, count in mesh_launches.items():
+        launches[name] = launches.get(name, 0) + count
     errs.update(phase_lm_kernels(torch, gen))
     lm_launches, lm_stats, lm_inputs = phase_lm(torch, card)
     launches.update(lm_launches)
@@ -3471,7 +3870,7 @@ def main() -> int:
         print(f"[times] fit {mode}: {wall:.3f} s whole fit (again {wall2:.3f} s), "
               f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
               f"{syncs} host syncs, on {card}")
-    for mode, (wall, iters, syncs, peak, _, _) in sparse_fits.items():
+    for mode, (wall, iters, syncs, peak, *_) in sparse_fits.items():
         print(f"[times] sparse fit {mode}: {wall:.3f} s whole fit, "
               f"{wall * 1e3 / iters:.2f} ms per outer iteration ({iters} iterations), "
               f"{syncs} host syncs, {peak:.2f} GB peak, on {card}")

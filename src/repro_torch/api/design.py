@@ -11,10 +11,11 @@ all on the original feature axis.
   indices (sentinel n_loc), the paper's Table-1 layout;
 * :class:`BucketedSlabDesign` -- the nnz-bucketed slabs
   (:class:`~repro_torch.data.byfeature.SlabBuckets`);
-* :class:`ShardedDesign` -- a design on a (1, M) mesh
+* :class:`ShardedDesign` -- a design on a mesh
   (``repro_torch.launch.mesh``): the M feature blocks of the by-feature
-  solve. Slab layouts live there as mesh-padded work buckets
-  (``data.residency``): on the device once, or, under a
+  solve, on one device or, on a process mesh, the rank's example shard
+  of every feature (:func:`shard_examples`). Slab layouts live there as
+  mesh-padded work buckets (``data.residency``): on the device once, or, under a
   ``device_budget_bytes`` below their bytes, streamed from pinned host
   memory through every pass; margins, correlation and the path's screen
   and gathers run per bucket;
@@ -378,12 +379,57 @@ class _MeshSlabState:
         return self.residency.iter_buckets()
 
 
+def shard_examples(inner, mesh, n: int):
+    """The rank's example shard of a global design on a process mesh of
+    data extent > 1: ``(shard, max_row, k_parts)``, the shard a design of
+    n_loc rows owning its memory (slab and bucketed layouts keep their
+    K), ``max_row`` the global slabs' largest row index (a device scalar)
+    and ``k_parts`` each bucket's global per-feature live-slot maxima
+    (the K class every rank must agree on); both None for a dense
+    design. Raises the reference's guards on a mismatched slab data
+    dimension or an n the data extent does not divide."""
+    from repro_torch.core.distributed import example_rows, slab_dims
+
+    ddim, d = mesh.shape["data"], mesh.data_rank
+    if isinstance(inner, DenseDesign):
+        X = torch.as_tensor(inner.X)
+        return DenseDesign(X[example_rows(n, mesh)].clone()), None, None
+    if isinstance(inner, SlabDesign):
+        n_loc = slab_dims(inner.row_idx, inner.values, ddim, n)
+        buckets = ((inner.row_idx, inner.values, None),)
+    elif isinstance(inner, BucketedSlabDesign):
+        n_loc = n // ddim
+        buckets = inner.slabs.buckets
+        for r_b, v_b, _ in buckets:
+            slab_dims(r_b, v_b, ddim, n)
+    else:
+        raise TypeError(f"no example shards for layout {inner.layout!r}")
+    local = tuple((r_b[:, d:d + 1].clone(), v_b[:, d:d + 1].clone(), f)
+                  for r_b, v_b, f in buckets)
+    max_row = torch.stack([r_b.max() for r_b, _, _ in buckets if r_b.numel()]
+                          or [torch.zeros((), dtype=torch.int32)]).max()
+    k_parts = [(r_b < n_loc).sum(-1).amax(-1) for r_b, _, _ in buckets]
+    if isinstance(inner, SlabDesign):
+        sub = SlabDesign(local[0][0], local[0][1], n_loc, front_packed=inner.front_packed)
+    else:
+        sub = BucketedSlabDesign(SlabBuckets(local, n_loc, inner.slabs.p), n_loc,
+                                 front_packed=inner.front_packed)
+    return sub, max_row, k_parts
+
+
 @dataclass(eq=False)
 class ShardedDesign:
-    """A design on a (1, M) mesh: the M feature blocks of the by-feature
-    solve run as one batch on the mesh's device. ``tile`` aligns the
-    feature padding (to M * tile) with the solver's Gram tile; results do
-    not depend on it.
+    """A design on a mesh: the M feature blocks of the by-feature solve
+    run as one batch on the mesh's device, or, on a process mesh, M / R
+    of them on each rank. ``tile`` aligns the feature padding (to M *
+    tile) with the solver's Gram tile; results do not depend on it.
+
+    On a process mesh of data extent > 1, ``inner`` is given global (on
+    every rank) and replaced by the rank's example shard of every
+    feature (:func:`shard_examples`); ``n`` keeps the global example
+    count. The example axis of :meth:`margins` and :meth:`correlation`
+    is then the rank's shard (n_loc rows), and correlation sums over the
+    shards, so its (p,) result is whole on every rank.
 
     Slab layouts (flat or bucketed) live as mesh-padded work buckets
     (:meth:`_mesh_state`): margins go through
@@ -401,9 +447,15 @@ class ShardedDesign:
     it before the first residency build (:meth:`_mesh_state`)."""
 
     inner: object
-    mesh: object                 # repro_torch.launch.mesh.DevMesh
+    mesh: object                 # repro_torch.launch.mesh.DevMesh or ProcMesh
     tile: int = 128
     device_budget_bytes: Optional[int] = None
+    # the global example count; given only with an ``inner`` that is
+    # already the rank's example shard (the gathers' restricted designs)
+    n: Optional[int] = None
+    # the global slabs' largest row index (process mesh, data extent > 1)
+    max_row: Optional[torch.Tensor] = field(default=None, repr=False)
+    k_parts: Optional[list] = field(default=None, repr=False)
     _states: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
@@ -414,6 +466,11 @@ class ShardedDesign:
                 f"mesh axes {self.mesh.axis_names} lack the 'model' axis the "
                 f"feature blocks map onto -- build meshes with "
                 f"repro_torch.launch.mesh.make_dev_mesh")
+        if self.n is None:
+            self.n = int(self.inner.shape[0])
+            if self.ddim > 1:
+                self.inner, self.max_row, self.k_parts = shard_examples(
+                    self.inner, self.mesh, self.n)
 
     @property
     def layout(self) -> str:
@@ -421,7 +478,21 @@ class ShardedDesign:
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return self.inner.shape
+        return (self.n, self.inner.shape[1])
+
+    @property
+    def n_local(self) -> int:
+        """Examples on this rank (n on one device)."""
+        return int(self.inner.shape[0])
+
+    def local_rows(self, v):
+        """This rank's rows of a global (n, ...) ``v`` (``v`` itself when it
+        already has the rank's n_local rows)."""
+        from repro_torch.core.distributed import example_rows
+
+        if v.shape[0] == self.n_local:
+            return v
+        return v[example_rows(v.shape[0], self.mesh)]
 
     @property
     def mdim(self) -> int:
@@ -438,19 +509,20 @@ class ShardedDesign:
         inner = self.inner.to(device)
         if inner is self.inner:
             return self
+        max_row = None if self.max_row is None else self.max_row.to(device)
         return ShardedDesign(inner, self.mesh, tile=self.tile,
-                             device_budget_bytes=self.device_budget_bytes)
+                             device_budget_bytes=self.device_budget_bytes, n=self.n,
+                             max_row=max_row, k_parts=self.k_parts)
 
     # -- mesh residency (slab layouts) ------------------------------------
 
     def _as_buckets(self) -> SlabBuckets:
-        n = self.shape[0]
         if isinstance(self.inner, SlabDesign):
             # a flat slab pair is a one-bucket layout
             p = self.inner.shape[1]
             fid = torch.arange(p, device=self.inner.row_idx.device)
             return SlabBuckets(buckets=((self.inner.row_idx, self.inner.values, fid),),
-                               n_loc=n // max(self.ddim, 1), p=p)
+                               n_loc=self.n_local, p=p)
         if isinstance(self.inner, BucketedSlabDesign):
             return self.inner.slabs
         raise TypeError(f"no slab form for layout {self.layout!r}")
@@ -466,14 +538,15 @@ class ShardedDesign:
         st = self._states.get(tile)
         if st is not None:
             return st
-        n, p = self.shape
+        p = self.shape[1]
         cap_tile = self.mdim * tile
         slabs = self._as_buckets()
         n_loc = slabs.n_loc
         budget = self.device_budget_bytes
         padded, feat_parts, k_parts, max_rows = [], [], [], []
-        for r_b, v_b, fid in slabs.buckets:
-            if slab_dims(r_b, v_b, self.mesh, n) != n_loc:
+        for i, (r_b, v_b, fid) in enumerate(slabs.buckets):
+            # the inner design holds one example shard (data dimension 1)
+            if slab_dims(r_b, v_b, 1, self.n_local) != n_loc:
                 raise ValueError("bucket n_loc inconsistent with mesh/n")
             if budget is not None:
                 # the manager's sources live on the host: under a budget
@@ -488,7 +561,12 @@ class ShardedDesign:
             fid = (fid.to(device=dev, dtype=torch.int64) if torch.is_tensor(fid)
                    else torch.from_numpy(np.asarray(fid, np.int64)).to(dev, non_blocking=True))
             feat_parts.append(torch.cat([fid, fid.new_full((pad_b,), p)]))
-            k_parts.append((r_b < n_loc).sum(-1).amax(-1))
+            if self.k_parts is None:
+                k_parts.append((r_b < n_loc).sum(-1).amax(-1))
+            else:
+                # every example shard's live slots: one K class on all ranks
+                k_glob = self.k_parts[i].to(dev)
+                k_parts.append(torch.cat([k_glob, k_glob.new_zeros(pad_b)]))
             max_rows.append(r_b.max())
             padded.append((r_b, v_b, fid))
         mesh_dev = self.mesh.device
@@ -505,7 +583,8 @@ class ShardedDesign:
             p_work=sum(int(b[0].shape[0]) for b in padded),
             n_loc=n_loc,
             cap_tile=cap_tile,
-            max_row=on_dev(torch.stack(max_rows).max()),
+            max_row=on_dev(torch.stack(max_rows).max() if self.max_row is None
+                           else self.max_row),
         )
         # mirror the manager's counters onto an active metrics registry (a
         # lazy callback; residency_stats() stays the source of truth)
@@ -517,7 +596,7 @@ class ShardedDesign:
         """Check the buckets' largest row index (read by the caller)."""
         from repro_torch.core.distributed import check_rows
 
-        check_rows(max_row, st.n_loc, self.shape[0], self.ddim)
+        check_rows(max_row, st.n_loc, self.n, self.ddim)
         st.checked = True
 
     def _checked_state(self) -> _MeshSlabState:
@@ -569,7 +648,7 @@ class ShardedDesign:
 
     def correlation(self, v):
         if self.layout == "dense":
-            return self.inner.correlation(v)
+            return self.mesh.all_reduce(self.inner.correlation(v), "data")
         from repro_torch.core.screening import make_sparse_corr
 
         st = self._checked_state()
@@ -578,7 +657,8 @@ class ShardedDesign:
         return scatter_set(g_work, st.feat_map, self.shape[1])
 
     def gram_tile(self, w, r, start: int, width: int):
-        return self.inner.gram_tile(w, r, start, width)
+        G, c = self.inner.gram_tile(w, r, start, width)
+        return self.mesh.all_reduce(G, "data"), self.mesh.all_reduce(c, "data")
 
     # -- the work axis (estimator-internal) ---------------------------------
     #
@@ -606,8 +686,8 @@ class ShardedDesign:
         beta_sub = take_fill(beta_work, idx, 0.0)
         rows_sub, vals_sub = take_buckets_iter(st.iter_buckets(), st.n_loc, idx, k_cap)
         front = getattr(self.inner, "front_packed", True)
-        sub = ShardedDesign(SlabDesign(rows_sub, vals_sub, self.shape[0], front_packed=front),
-                            self.mesh, tile=self.tile if tile is None else tile)
+        sub = ShardedDesign(SlabDesign(rows_sub, vals_sub, self.n_local, front_packed=front),
+                            self.mesh, tile=self.tile if tile is None else tile, n=self.n)
         return sub, beta_sub, idx
 
     def _work_to_original(self, beta_work, tile: Optional[int] = None):
@@ -618,7 +698,7 @@ class ShardedDesign:
     def gather(self, beta, mask, cap: int, *, k_cap: Optional[int] = None):
         if self.layout == "dense":
             sub, beta_sub, idx = self.inner.gather(beta, mask, cap)
-            return ShardedDesign(sub, self.mesh, tile=self.tile), beta_sub, idx
+            return ShardedDesign(sub, self.mesh, tile=self.tile, n=self.n), beta_sub, idx
         st = self._checked_state()
         mask_work = take_fill(mask, st.feat_map, False)
         beta_work = take_fill(beta.to(torch.float32), st.feat_map, 0.0)
@@ -657,7 +737,7 @@ def as_design(data, *, n: Optional[int] = None, mesh=None,
     elif isinstance(data, ByFeature):
         if n is not None and data.n != n:
             raise ValueError(f"ByFeature has n={data.n} but len(y)={n}")
-        d = SlabDesign.from_by_feature(data, 1)
+        d = SlabDesign.from_by_feature(data, 1 if mesh is None else mesh.shape["data"])
     elif isinstance(data, SlabBuckets):
         dp = int(data.buckets[0][0].shape[1]) if data.buckets else 1
         d = BucketedSlabDesign(data, n=data.n_loc * dp, front_packed=True)
@@ -665,11 +745,8 @@ def as_design(data, *, n: Optional[int] = None, mesh=None,
         row_idx, values = (torch.as_tensor(a) for a in data)
         if n is None:
             raise ValueError("raw (row_idx, values) slabs need n= (len(y))")
-        if mesh is not None:
-            n_loc = n
-        else:
-            dp = int(row_idx.shape[1]) if row_idx.dim() == 3 else 1
-            n_loc = n // max(dp, 1)
+        dp = int(row_idx.shape[1]) if row_idx.dim() == 3 else 1
+        n_loc = n // max(dp, 1)
         if row_idx.dim() == 2:
             row_idx = row_idx[:, None, :]
             values = values[:, None, :]

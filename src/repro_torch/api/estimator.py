@@ -4,8 +4,11 @@
 
 * ``fit(design, y, lam)`` -- one solve (with ``warm_start`` and
   ``densify=``) on dense, slab and bucketed designs, locally or on a
-  (1, M) mesh (``mesh=``: the by-feature slab solve of paper Algorithm 4
-  with its M feature blocks as one batch on the device);
+  mesh (``mesh=``: paper Algorithm 4 with its M feature blocks as one
+  batch on the device, or, on a process mesh, over the ranks of a
+  ``torch.distributed`` world: each rank passes the global data, keeps
+  its example shard and runs its M / R blocks; beta is whole on every
+  rank, ``res.m`` the rank's rows);
 * ``path(design, y)`` -- the warm-started, screened regularization path
   (paper Algorithm 5): strong-rule working sets, KKT-certified, solved
   restricted at power-of-two capacities, with the working set carried
@@ -38,6 +41,9 @@ anyway, so work queued on the card between two reads is timed in the
 span that owns the later read; tracing adds no read, and with no tracer
 every span is the shared null span.
 
+On a process mesh, streamed residency (a device budget), checkpointed
+or resumed paths and fault injection raise "not ported yet".
+
 Faults (``repro_torch.resilience``): every solve consults
 ``arm_engine_fault()`` once (:func:`_dense_state`, which also serves the
 mesh and densify-once solves, and the slab solver), and the path driver
@@ -61,12 +67,17 @@ from repro_torch.core.dglmnet import DGLMNETOptions, FitResult, build_solver
 from repro_torch.core.distributed import (
     DistributedFitResult,
     _finish,
-    check_slab_shapes,
+    check_rows,
+    data_reducer,
+    dense_blocks,
     layout_slabs,
+    make_distributed_iteration,
     make_distributed_iteration_sparse,
     make_slab_densifier,
     make_slab_margins,
     pad_features,
+    rank_features,
+    slab_dims,
 )
 from repro_torch.core.objective import objective
 from repro_torch.core.screening import (
@@ -81,15 +92,19 @@ from repro_torch.core.subproblem import layout_blocks
 from repro_torch.data.byfeature import k_class, scatter_features
 from repro_torch.data.residency import put_slab
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch.mesh import is_process_mesh
 from repro_torch.obs import trace as obs_trace
-from repro_torch.resilience import PathProgress, arm_engine_fault, maybe_kill
+from repro_torch.resilience import PathProgress, active_plan, arm_engine_fault, maybe_kill
+from repro_torch.sharding.collect import concat_replicated
 
 
 def lambda_max_design(design, y):
     """Smallest lambda for which beta* = 0, from the design's correlation
     pass: ``max_j |x_j^T (0.5 y)|`` (at beta = 0 the NLL residual is
-    exactly -y/2), so dense and slab layouts share one definition."""
-    y = torch.as_tensor(y, dtype=torch.float32)
+    exactly -y/2), so dense and slab layouts share one definition. On a
+    process mesh ``y`` may be global or the rank's rows; the result is
+    the same on every rank."""
+    y = _rows(design, torch.as_tensor(y, dtype=torch.float32))
     return design.correlation(0.5 * y).abs().max()
 
 
@@ -264,10 +279,24 @@ def _fit_local_dense(X, y, lam, opts: DGLMNETOptions, beta0,
     )
 
 
+def _mesh_dense_state(X, y, beta, m, lam, mesh, opts: DGLMNETOptions):
+    """The engine's solve on ``mesh`` over the rank's example shard X
+    (n_loc, p), p a multiple of M * tile: its blocks' tiles laid out once
+    (:func:`~repro_torch.core.distributed.dense_blocks`, freed with the
+    solve); one fault consult per solve."""
+    Xt = dense_blocks(X, mesh, opts.tile)
+    solve = engine.make_solver(make_distributed_iteration(mesh, opts),
+                               max_iters=opts.max_iters, rel_tol=opts.rel_tol,
+                               snap_tol=opts.snap_tol, fault=arm_engine_fault(),
+                               reduce=data_reducer(mesh))
+    return solve(Xt, y, beta, m, lam)
+
+
 def _fit_mesh_dense(X, y, lam, mesh, opts: DGLMNETOptions, beta0,
                     verbose: bool) -> DistributedFitResult:
-    """Dense solve on a (1, M) mesh: X's features zero-padded to M * tile
-    and split into the mesh's M contiguous blocks."""
+    """Dense solve on a mesh: X (the rank's example shard; y its rows)
+    with its features zero-padded to M * tile and split into the mesh's
+    M contiguous blocks, M / R of them on this rank."""
     num_blocks = mesh.shape["model"]
     p = X.shape[1]
     pad = (-p) % (num_blocks * opts.tile)
@@ -277,22 +306,29 @@ def _fit_mesh_dense(X, y, lam, mesh, opts: DGLMNETOptions, beta0,
             beta0 = torch.nn.functional.pad(beta0, (0, pad))
     beta = (torch.zeros(X.shape[1], dtype=torch.float32, device=X.device)
             if beta0 is None else beta0)
-    state = _dense_state(X, y, beta, X @ beta, lam,
-                         replace(opts, num_blocks=num_blocks))
+    state = _mesh_dense_state(X, y, beta, X @ beta, lam, mesh, opts)
     return _finish(state, p, pad, verbose, "dist")
 
 
 def _fit_mesh_slab(row_idx, values, y, lam, mesh, strat: Strategy, beta0,
-                   verbose: bool) -> DistributedFitResult:
-    """By-feature slab solve (p, 1, K) on a (1, M) mesh -- the
-    webspam-scale layout where a dense X cannot exist. The subproblem
-    family is the strategy's per-solve densify decision
+                   verbose: bool, *, n: int, max_row=None) -> DistributedFitResult:
+    """By-feature slab solve on a mesh -- the webspam-scale layout where a
+    dense X cannot exist. ``row_idx``/``values`` are the rank's example
+    shard (p, 1, K) and ``y`` its rows; ``n`` the global example count.
+    The slabs' largest row is read once and checked: ``max_row`` (the
+    global slabs', so every rank reads the same) or the shard's own. The
+    subproblem family is the strategy's per-solve densify decision
     (``prefer_slab_gram`` or the explicit override): the slab kernels
-    (``slab_gram``, the tile cycle, ``slab_spmv``) on slabs laid out once
-    per fit, or one densify per solve feeding the dense solver."""
+    (``slab_gram``, the tile cycle, ``slab_spmv``) on the rank's blocks
+    laid out once per fit, or one densify per solve feeding the dense
+    solver."""
     opts = strat.opts
     num_blocks = mesh.shape["model"]
-    n_loc = check_slab_shapes(row_idx, values, mesh, y.shape[0])
+    n_loc = slab_dims(row_idx, values, 1, y.shape[0])
+    if max_row is None and row_idx.numel():
+        max_row = row_idx.max()
+    check_rows(int(engine.host_read(max_row)) if max_row is not None else 0, n_loc, n,
+               mesh.shape["data"])
     p = row_idx.shape[0]
     # sentinel-row feature padding is safe: all-sentinel slabs contribute
     # nothing to any Gram tile, so their coordinates stay at 0
@@ -307,21 +343,24 @@ def _fit_mesh_slab(row_idx, values, y, lam, mesh, strat: Strategy, beta0,
 
     if strat.use_densify(n_loc, row_idx.shape[2]):
         X = make_slab_densifier(mesh, n_loc)(row_idx, values)
-        state = _dense_state(X, y, beta, m, lam, replace(opts, num_blocks=num_blocks))
+        state = _mesh_dense_state(X, y, beta, m, lam, mesh, opts)
         del X
         return _finish(state, p, pad, verbose, "dist-sparse-dense")
 
-    lay = layout_slabs(row_idx[:, 0], values[:, 0], num_blocks, opts.tile)
+    feats = rank_features(row_idx.shape[0], mesh)
+    lay = layout_slabs(row_idx[feats, 0], values[feats, 0], mesh.local_blocks, opts.tile)
     solve = engine.make_solver(make_distributed_iteration_sparse(mesh, opts),
                                max_iters=opts.max_iters, rel_tol=opts.rel_tol,
-                               snap_tol=opts.snap_tol, fault=arm_engine_fault())
+                               snap_tol=opts.snap_tol, fault=arm_engine_fault(),
+                               reduce=data_reducer(mesh))
     state = solve(lay, y, beta, m, lam)
     del lay
     return _finish(state, p, pad, verbose, "dist-sparse")
 
 
 def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False):
-    """Dispatch one solve to the strategy's implementation cell."""
+    """Dispatch one solve to the strategy's implementation cell. On a
+    mesh ``y`` holds the rows of the design's example shard."""
     if strat.execution == "local":
         X = design.X if design.layout == "dense" else design.densify()
         return _fit_local_dense(X, y, lam, strat.opts, beta0, verbose)
@@ -332,7 +371,8 @@ def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False
     if design.layout == "slab":
         # under a device budget the slabs stay on the host until here
         rows, vals = put_slab(inner.row_idx, inner.values, y.device)
-        return _fit_mesh_slab(rows, vals, y, lam, design.mesh, strat, beta0, verbose)
+        return _fit_mesh_slab(rows, vals, y, lam, design.mesh, strat, beta0, verbose,
+                              n=design.n, max_row=design.max_row)
     # bucketed on a mesh: flatten through the bucket gather at the largest
     # K class, solve the flat slab problem, scatter back to the original
     # order (one work axis throughout: strat.opts.tile)
@@ -346,10 +386,29 @@ def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False
     sub, beta_sub, idx = design._gather_work(beta_work, mask_work, st.p_work, st.k_max,
                                              tile=tile)
     res = _fit_mesh_slab(sub.inner.row_idx, sub.inner.values, y, lam, design.mesh,
-                         strat, beta_sub, verbose)
+                         strat, beta_sub, verbose, n=design.n, max_row=design.max_row)
     res.beta = design._work_to_original(scatter_features(res.beta, idx, st.p_work),
                                         tile=tile)
     return res
+
+
+def _rows(design, y):
+    """``y``'s rows of the design's example shard (all of them off a
+    process mesh)."""
+    return design.local_rows(y) if isinstance(design, ShardedDesign) else y
+
+
+def _check_process_mesh(budget) -> None:
+    """Raise for what the process mesh does not run yet (no silent
+    one-rank path): streamed residency and fault injection."""
+    if budget is not None:
+        raise NotImplementedError(
+            "streamed residency (device_budget_bytes) on a process mesh is not ported "
+            "yet (ROADMAP queue 1 item 4); keep the slabs resident")
+    if active_plan() is not None:
+        raise NotImplementedError(
+            "fault injection on a process mesh is not ported yet (ROADMAP queue 1 "
+            "item 4); inject faults on one device")
 
 
 @dataclass
@@ -381,6 +440,8 @@ class LogisticL1:
         budget = self.opts.device_budget_bytes
         design = as_design(data, n=n, mesh=self.mesh, tile=self.opts.tile,
                            device_budget_bytes=budget)
+        if isinstance(design, ShardedDesign) and is_process_mesh(design.mesh):
+            _check_process_mesh(design.device_budget_bytes if budget is None else budget)
         if isinstance(design, ShardedDesign):
             if self.mesh is not None and design.mesh is not self.mesh:
                 raise ValueError(
@@ -419,7 +480,7 @@ class LogisticL1:
         :class:`DistributedFitResult` (mesh). ``densify`` overrides the
         slab solver's densify-once heuristic."""
         design = self._design(data, y)
-        y = self._tensor(y)
+        y = _rows(design, self._tensor(y))
         strat = resolve(design, self.opts, densify=densify)
         if beta0 is None and self.warm_start and self.beta_ is not None:
             beta0 = self.beta_
@@ -434,7 +495,8 @@ class LogisticL1:
     def decision_function(self, data, *, beta=None):
         """X @ beta through the design (slab designs through
         ``kernels.slab_spmv``), with ``beta_`` (the last solve) unless
-        ``beta=`` is given."""
+        ``beta=`` is given; on a process mesh the rows of the rank's
+        example shard."""
         design = self._design(data)
         beta = self.beta_ if beta is None else beta
         if beta is None:
@@ -557,12 +619,19 @@ class LogisticL1:
         y = self._tensor(y)
         strat = resolve(design, self.opts, densify=densify)
         opts = strat.opts
-        n = int(y.shape[0])
         n_d, p = design.shape
-        if n_d != n:
-            raise ValueError(f"X rows {n_d} != len(y) {n}")
-
+        if n_d != int(y.shape[0]):
+            raise ValueError(f"X rows {n_d} != len(y) {int(y.shape[0])}")
         sharded = isinstance(design, ShardedDesign)
+        if sharded and is_process_mesh(design.mesh) and (checkpoint_every or resume_from):
+            raise NotImplementedError(
+                "checkpointed and resumed paths on a process mesh are not ported yet "
+                "(ROADMAP queue 1 item 4); run them on one device")
+        # on a process mesh the example axis is the rank's shard from here on
+        y = _rows(design, y)
+        n = int(y.shape[0])
+        reduce = data_reducer(design.mesh) if sharded else None
+
         # the work-axis path only matters under screening (gradient passes
         # and masked gathers); screen=False keeps beta in design order
         slab_mesh = sharded and screen and design.layout in ("slab", "bucketed")
@@ -722,7 +791,7 @@ class LogisticL1:
                         nnz, f = int(engine.host_read(nnz_dev)), float(res.f)
                     else:
                         nnz_h, f_h = engine.host_read(torch.stack(
-                            [nnz_dev, objective(m, y, beta, lam).double()]))
+                            [nnz_dev, objective(m, y, beta, lam, reduce).double()]))
                         nnz, f = int(nnz_h), float(f_h)
                     metrics = eval_fn(beta_out) if eval_fn else {}
                     points.append(PathPoint(lam=lam, nnz=nnz, f=f,
@@ -756,7 +825,9 @@ def make_design_eval(test_data, y_test, *, mesh=None, tile: int = 128,
     design on ``device`` (slab designs through ``kernels.slab_spmv``): only
     the (n_test,) scores reach the host, in one ``engine.host_read`` per
     point (a slab design on a mesh adds one entry read, its row bound, at
-    the first). Metrics are the paper's Figure-1 set (``train.metrics``)."""
+    the first). On a process mesh each rank scores its example shard and
+    the shards are collected over ``data`` before the read. Metrics are
+    the paper's Figure-1 set (``train.metrics``)."""
     from repro_torch.train.metrics import metrics_from_scores
 
     dev = resolve_device(device)
@@ -767,6 +838,8 @@ def make_design_eval(test_data, y_test, *, mesh=None, tile: int = 128,
 
     def fn(beta):
         scores = design.margins(torch.as_tensor(beta, dtype=torch.float32, device=dev))
+        if isinstance(design, ShardedDesign):
+            scores = concat_replicated(scores, design.mesh, axis="data")
         return metrics_from_scores(np.asarray(engine.host_read(scores), np.float32), y_host)
 
     return fn

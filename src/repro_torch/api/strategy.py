@@ -9,12 +9,16 @@ the one place (design layout, mesh, options) maps to an execution plan.
   :meth:`Strategy.use_densify`;
 * ``cycle_mode="auto"`` resolves to a concrete mode here;
 * ``cap_tile`` is the feature-capacity quantum of the screened path's
-  restricted solves: ``tile`` locally, ``M * tile`` on a (1, M) mesh;
+  restricted solves: ``tile`` locally, ``M * tile`` on a mesh of M
+  feature blocks;
 * ``residency`` is "streamed" when a mesh slab design's device budget is
   below its padded slab bytes (``data.residency`` then double-buffers
   the buckets from the host through every pass), else "resident". A
   budget on a sharded dense layout is rejected: the dense mesh solve
   keeps X resident, so the budget would bound nothing.
+
+:func:`mesh_programs` hands out a mesh's outer step and sparse screen,
+resolved the same way.
 """
 from __future__ import annotations
 
@@ -88,3 +92,31 @@ def resolve(design, opts: DGLMNETOptions, *,
             residency = "streamed"
     return Strategy(execution=execution, solver=solver, opts=opts,
                     cap_tile=cap_tile, densify=densify, residency=residency)
+
+
+def mesh_programs(mesh, opts: DGLMNETOptions, *, layout: str = "dense",
+                  n_loc: Optional[int] = None):
+    """The mesh programs for a layout and option bundle, resolved as live
+    solves resolve them (the reference's dry-run front door).
+
+    Returns ``(step, screen)``: ``step`` is the outer iteration for the
+    layout (``core.distributed.make_dglmnet_step`` for ``"dense"``,
+    ``make_dglmnet_step_sparse`` for slab layouts: ``step(X | row_idx,
+    values, y, beta, m, lam)``); ``screen`` is the sparse strong-rule pass
+    ``core.screening.make_sparse_screen`` (slab layouts with ``n_loc``
+    given, else None)."""
+    from repro_torch.core.distributed import make_dglmnet_step, make_dglmnet_step_sparse
+
+    if layout not in ("dense", "slab", "bucketed"):
+        raise ValueError(f"unknown layout {layout!r}")
+    opts = _resolve_cycle(opts)
+    if layout == "dense":
+        step = make_dglmnet_step(mesh, opts)
+    else:
+        step = make_dglmnet_step_sparse(mesh, opts)
+    screen = None
+    if layout != "dense" and n_loc is not None:
+        from repro_torch.core.screening import make_sparse_screen
+
+        screen = make_sparse_screen(mesh, n_loc, opts.tile)
+    return step, screen

@@ -5,14 +5,15 @@ Re-exports the reference's ``repro.core`` names that the port has, so a
 script written against ``from repro.core import ...`` has a port name to
 move to. The names resolve on first use (PEP 562): the kernel dispatch
 imports ``core.subproblem`` and the engine imports the dispatch, so an
-eager import here would close a cycle. Not ported yet: ``fit_distributed``,
-``make_dglmnet_step`` and ``make_dglmnet_step_sparse`` (multi-GPU)."""
+eager import here would close a cycle."""
 from importlib import import_module
 
 _EXPORTS = {
     "repro_torch.core.dglmnet": ("DGLMNETOptions", "FitResult", "FitState",
                                  "dglmnet_iteration", "fit", "fit_python_loop"),
-    "repro_torch.core.distributed": ("DistributedFitResult", "fit_distributed_sparse"),
+    "repro_torch.core.distributed": ("DistributedFitResult", "fit_distributed",
+                                     "fit_distributed_sparse", "make_dglmnet_step",
+                                     "make_dglmnet_step_sparse"),
     "repro_torch.core.engine": ("SolverState", "make_solver", "make_step"),
     "repro_torch.core.linesearch": ("LineSearchResult", "line_search"),
     "repro_torch.core.objective": ("lambda_max", "margins", "neg_log_likelihood",

@@ -28,6 +28,14 @@ working set and the points not yet on the host, packed into one
 tensor); a resumed path's first reads are its lambda_max, then the
 points left, and the saved state reaches the card without a read.
 
+On a process mesh (``launch.mesh.ProcMesh``) every rank runs this loop
+on its example shard (m, y) with beta whole; ``reduce`` (the mesh's
+``all_reduce`` over ``data``) sums every NLL partial -- f(beta0), the
+fused NLL, each line-search batch, the snap-back's f(1) -- and the
+iteration function reduces its own (G, c, dm, dbeta, grad_dot). So the
+packed (done, status) is the same on every rank, each rank reads it
+once per iteration, and the ranks' loops end together.
+
 Replaying the iteration as a CUDA graph and checking ``done`` every few
 iterations is left for later: the frozen-iterate lattice already makes
 iterations after ``done`` no-ops.
@@ -127,7 +135,8 @@ class HostState(NamedTuple):
 _POISON = {"nan": float("nan"), "inf": float("inf")}
 
 
-def _advance(iteration_fn, data, y, beta, m, lam, *, fault=None, fire: bool = False):
+def _advance(iteration_fn, data, y, beta, m, lam, *, fault=None, fire: bool = False,
+             reduce=None):
     """One outer step: fused working stats + subproblem + line search.
 
     ``fault`` (a ``resilience.EngineFault``) poisons this step when
@@ -135,17 +144,20 @@ def _advance(iteration_fn, data, y, beta, m, lam, *, fault=None, fire: bool = Fa
     ``"margins"`` replaces m before the working statistics, ``"stats"``
     replaces (w, z) after them (f0 keeps the healthy NLL), and
     ``"linesearch"`` forces an exhausted, strictly worse line search. An
-    iteration that does not fire queues exactly the healthy ops."""
+    iteration that does not fire queues exactly the healthy ops.
+    ``reduce`` sums NLL partials over a process mesh's example shards."""
     poison = fault is not None and fire
     if poison and fault.kind == "margins":
         m = torch.full_like(m, _POISON[fault.mode])
     w, z, nll0 = logistic_stats(m, y)
+    if reduce is not None:
+        nll0 = reduce(nll0)
     f0 = nll0 + lam * l1_norm(beta)
     if poison and fault.kind == "stats":
         w = torch.full_like(w, _POISON[fault.mode])
         z = torch.full_like(z, _POISON[fault.mode])
     dbeta, dm, grad_dot = iteration_fn(data, y, beta, m, lam, w, z)
-    res = line_search(m, dm, y, beta, dbeta, lam, grad_dot, f0=f0)
+    res = line_search(m, dm, y, beta, dbeta, lam, grad_dot, f0=f0, reduce=reduce)
     if poison and fault.kind == "linesearch":
         # +1.0 dominates any ulp noise between f0 and the carried
         # objective, so the stall guard's strict comparison always sees it
@@ -157,12 +169,12 @@ def _advance(iteration_fn, data, y, beta, m, lam, *, fault=None, fire: bool = Fa
     return dbeta, dm, res
 
 
-def make_step(iteration_fn) -> Callable:
+def make_step(iteration_fn, *, reduce=None) -> Callable:
     """Single outer iteration ``step(data, y, beta, m, lam) -> (beta', m',
     f', alpha)``, for callers that run the loop themselves."""
 
     def step(data, y, beta, m, lam):
-        dbeta, dm, res = _advance(iteration_fn, data, y, beta, m, lam)
+        dbeta, dm, res = _advance(iteration_fn, data, y, beta, m, lam, reduce=reduce)
         return beta + res.alpha * dbeta, m + res.alpha * dm, res.f_new, res.alpha
 
     return step
@@ -205,13 +217,13 @@ def _body(s: SolverState, dbeta, dm, res, it: int, *, max_iters: int,
     return new, torch.stack([done.to(torch.int32), status])
 
 
-def _snap_back(s: SolverState, y, lam, snap_tol: float) -> SolverState:
+def _snap_back(s: SolverState, y, lam, snap_tol: float, reduce=None) -> SolverState:
     """Sparsity snap-back epilogue (paper section 3.3): prefer alpha = 1 on
     the final step if the objective increase is within snap_tol; applies
     the stashed step. On a tripped status the frozen carry stands."""
     if s.status != STATUS_OK:
         return s._replace(alpha=torch.zeros_like(s.alpha))
-    f_unit = f_alpha(1.0, s.m, s.dm, y, s.beta, s.dbeta, lam)
+    f_unit = f_alpha(1.0, s.m, s.dm, y, s.beta, s.dbeta, lam, reduce)
     snap = f_unit <= s.f_new * (1.0 + snap_tol) + 1e-12
     alpha = torch.where(snap, torch.ones_like(s.alpha), s.alpha)
     f_fin = torch.where(snap, f_unit, s.f_new)
@@ -228,19 +240,20 @@ def _snap_back(s: SolverState, y, lam, snap_tol: float) -> SolverState:
 
 
 def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
-                snap_tol: float, fault=None) -> Callable:
+                snap_tol: float, fault=None, reduce=None) -> Callable:
     """Builds ``solve(data, y, beta0, m0, lam) -> SolverState``: the outer
     loop with its guardrails and the snap-back epilogue. ``lam`` is a
     Python float. ``fault`` (a ``resilience.EngineFault``, from the
     estimator's one ``arm_engine_fault()`` consult per solve) poisons
     iteration ``fault.at_iter`` (1-based); the host reads stay one per
-    iteration run, the poisoned one included."""
+    iteration run, the poisoned one included. ``reduce`` sums NLL
+    partials over a process mesh's example shards (module docstring)."""
     if max_iters < 1:
         raise ValueError(f"max_iters must be >= 1, got {max_iters}")
 
     def solve(data, y, beta0, m0, lam):
         lam = float(lam)
-        f0 = objective(m0, y, beta0, lam)
+        f0 = objective(m0, y, beta0, lam, reduce)
         f_hist = torch.full((max_iters + 1,), math.nan, dtype=torch.float32,
                             device=m0.device)
         f_hist[0] = f0
@@ -256,7 +269,8 @@ def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
         )
         for it in range(1, max_iters + 1):
             dbeta, dm, res = _advance(iteration_fn, data, y, s.beta, s.m, lam, fault=fault,
-                                      fire=fault is not None and it == fault.at_iter)
+                                      fire=fault is not None and it == fault.at_iter,
+                                      reduce=reduce)
             s, flags = _body(s, dbeta, dm, res, it, max_iters=max_iters,
                              rel_tol=rel_tol)
             done, status = host_read(flags)
@@ -264,7 +278,7 @@ def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
                            it=it if status == STATUS_OK else it - 1)
             if done:
                 break
-        return _snap_back(s, y, lam, snap_tol)
+        return _snap_back(s, y, lam, snap_tol, reduce)
 
     return solve
 

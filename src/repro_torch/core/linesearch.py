@@ -18,6 +18,11 @@ golden section always runs, and the backtracking ladder a_init * b^k,
 k = 0..MAX_BACKTRACKS, is evaluated in one batch and the first accepted
 rung taken (the reference's loop stops there, or at the last rung).
 Nothing here reads a value on the host.
+
+On a process mesh the margins are the rank's example shard and
+``reduce`` sums each evaluation's NLL partials over the ``data`` axis:
+one reduction per batch of trial points (both points of a golden
+step, the whole ladder), so every rank selects from the same values.
 """
 from __future__ import annotations
 
@@ -41,14 +46,15 @@ class LineSearchResult(NamedTuple):
     backtracks: torch.Tensor
 
 
-def f_alpha(alpha, m, dm, y, beta, dbeta, lam):
+def f_alpha(alpha, m, dm, y, beta, dbeta, lam, reduce=None):
     """f(beta + alpha dbeta) for a scalar alpha, or for each entry of a
-    1-D tensor of alphas (one batched pass)."""
-    if torch.is_tensor(alpha) and alpha.dim() == 1:
-        a = alpha[:, None]
-        return (neg_log_likelihood(m + a * dm, y)
-                + lam * l1_norm(beta + a * dbeta))
-    return neg_log_likelihood(m + alpha * dm, y) + lam * l1_norm(beta + alpha * dbeta)
+    1-D tensor of alphas (one batched pass); ``reduce`` sums the NLL
+    partials of a process mesh's example shards (all alphas at once)."""
+    a = alpha[:, None] if torch.is_tensor(alpha) and alpha.dim() == 1 else alpha
+    nll = neg_log_likelihood(m + a * dm, y)
+    if reduce is not None:
+        nll = reduce(nll)
+    return nll + lam * l1_norm(beta + a * dbeta)
 
 
 def armijo_D(grad_dot_dbeta, quad_term, beta, dbeta, lam, gamma=0.0):
@@ -77,19 +83,20 @@ def golden_section(fun, lo, hi, iters: int = 24):
 
 def line_search(m, dm, y, beta, dbeta, lam, grad_dot_dbeta, quad_term=0.0, *,
                 f0=None, max_backtracks: int = MAX_BACKTRACKS, b: float = 0.5,
-                sigma: float = 0.01, gamma: float = 0.0, delta: float = 1e-3
-                ) -> LineSearchResult:
+                sigma: float = 0.01, gamma: float = 0.0, delta: float = 1e-3,
+                reduce=None) -> LineSearchResult:
     """Algorithm 3 from cached margins; ``f0`` is f(alpha=0) when the
-    caller already holds it (the engine's fused-stats NLL)."""
+    caller already holds it (the engine's fused-stats NLL), reduced;
+    ``grad_dot_dbeta`` is reduced too."""
     dev = m.device
     if f0 is None:
-        f0 = f_alpha(0.0, m, dm, y, beta, dbeta, lam)
+        f0 = f_alpha(0.0, m, dm, y, beta, dbeta, lam, reduce)
     D = armijo_D(grad_dot_dbeta, quad_term, beta, dbeta, lam, gamma)
-    f1 = f_alpha(1.0, m, dm, y, beta, dbeta, lam)
+    f1 = f_alpha(1.0, m, dm, y, beta, dbeta, lam, reduce)
     unit_ok = f1 <= f0 + sigma * D
 
     def fun(a):
-        return f_alpha(a, m, dm, y, beta, dbeta, lam)
+        return f_alpha(a, m, dm, y, beta, dbeta, lam, reduce)
 
     # scalars made on the device by a fill (a host->device copy would wait)
     lo = torch.full((), delta, dtype=torch.float32, device=dev)

@@ -35,9 +35,13 @@ def l1_norm(beta: torch.Tensor) -> torch.Tensor:
     return beta.abs().sum(-1)
 
 
-def objective(m, y, beta, lam) -> torch.Tensor:
-    """f(beta) = L(beta) + lam * ||beta||_1, from cached margins."""
-    return neg_log_likelihood(m, y) + lam * l1_norm(beta)
+def objective(m, y, beta, lam, reduce=None) -> torch.Tensor:
+    """f(beta) = L(beta) + lam * ||beta||_1, from cached margins. On a
+    process mesh ``m`` and ``y`` are the rank's example shard and
+    ``reduce`` (``mesh.all_reduce`` over ``data``) sums the NLL's
+    partials; ``beta`` is whole on every rank."""
+    nll = neg_log_likelihood(m, y)
+    return (nll if reduce is None else reduce(nll)) + lam * l1_norm(beta)
 
 
 def working_stats(m: torch.Tensor, y: torch.Tensor):

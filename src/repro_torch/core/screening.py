@@ -144,14 +144,15 @@ def scatter_columns(beta_sub, idx, p: int):
 
 
 def make_sparse_corr(mesh, n_loc: int, tile: int) -> Callable:
-    """``corr(row_idx, values, v) -> X^T v`` (signed) over (p, 1, K) slabs
-    on a (1, M) mesh (local rows, sentinel ``n_loc``). The reference runs
-    it per tile under ``shard_map`` to bound memory; here the feature axis
-    goes in chunks of :data:`CORR_CHUNK` (each feature's sum over K does
-    not depend on the chunking). ``tile`` is checked as the reference
-    checks it: the padded feature count must be a multiple of it."""
-    if mesh.shape["data"] != 1:
-        raise ValueError("the slab correlation is ported for data extent 1")
+    """``corr(row_idx, values, v) -> X^T v`` (signed) over one example
+    shard's (p, 1, K) slabs (local rows, sentinel ``n_loc``; ``v`` the
+    shard's (n_loc,)), summed over the mesh's example shards (one
+    all_reduce over ``data``, as the reference's ``psum``), so the (p,)
+    result is whole on every rank. The reference runs it per tile under
+    ``shard_map`` to bound memory; here the feature axis goes in chunks of
+    :data:`CORR_CHUNK` (each feature's sum over K does not depend on the
+    chunking). ``tile`` is checked as the reference checks it: the padded
+    feature count must be a multiple of it."""
 
     def corr(row_idx, values, v):
         from repro_torch.kernels.ops import slab_corr
@@ -161,8 +162,9 @@ def make_sparse_corr(mesh, n_loc: int, tile: int) -> Callable:
             raise ValueError(f"feature count {p} must be a multiple of tile={tile} "
                              f"(pad the slabs upstream)")
         rows, vals = row_idx[:, 0], values[:, 0]
-        return torch.cat([slab_corr(rows[s:s + CORR_CHUNK], vals[s:s + CORR_CHUNK], v)
-                          for s in range(0, p, CORR_CHUNK)])
+        g = torch.cat([slab_corr(rows[s:s + CORR_CHUNK], vals[s:s + CORR_CHUNK], v)
+                       for s in range(0, p, CORR_CHUNK)])
+        return mesh.all_reduce(g, "data")
 
     return corr
 

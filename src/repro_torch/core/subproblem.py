@@ -237,14 +237,16 @@ def unlayout_coefs(bt: torch.Tensor, p: int) -> torch.Tensor:
 
 
 def cd_cycle_gram(Xt, w, r, beta, dbeta, lam, *, nu: float = NU,
-                  cycle_mode: str = "sequential", block: int = 16
+                  cycle_mode: str = "sequential", block: int = 16, reduce=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One full CD cycle over every block via Gram tiles.
 
     Xt (M, nt, n, F) from :func:`layout_blocks`; r (M, n); beta, dbeta
     (M, nt * F). The residual advances between tiles with one batched
     matmul, so with the sequential cycle the iterates are those of
-    ``cd_cycle_residual``. Returns (dbeta, r).
+    ``cd_cycle_residual``. ``reduce(G, c) -> (G, c)`` sums each tile's
+    Gram block and correlation over a process mesh's example shards
+    (``core.distributed.local_subproblem``). Returns (dbeta, r).
     """
     nt, tile = Xt.shape[1], Xt.shape[3]
     tile_solver = make_tile_solver(cycle_mode=cycle_mode, tile=tile, block=block)
@@ -254,6 +256,8 @@ def cd_cycle_gram(Xt, w, r, beta, dbeta, lam, *, nu: float = NU,
         wX = w[None, :, None] * Xf
         G = Xf.transpose(1, 2) @ wX                         # (M, F, F)
         c = (wX.transpose(1, 2) @ r[..., None])[..., 0]     # (M, F)
+        if reduce is not None:
+            G, c = reduce(G, c)
         sl = slice(t * tile, (t + 1) * tile)
         d = tile_solver(G, c, beta[:, sl], dbeta[:, sl], lam, nu)
         r = r - (Xf @ d[..., None])[..., 0]
@@ -263,7 +267,7 @@ def cd_cycle_gram(Xt, w, r, beta, dbeta, lam, *, nu: float = NU,
 
 def solve_subproblem(Xt, w, z, beta, lam, *, method: str = "gram",
                      n_cycles: int = 1, nu: float = NU,
-                     cycle_mode: str = "sequential", block: int = 16
+                     cycle_mode: str = "sequential", block: int = 16, reduce=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paper Algorithm 2 on every block at once.
 
@@ -272,12 +276,13 @@ def solve_subproblem(Xt, w, z, beta, lam, *, method: str = "gram",
     the Gram path with ``cycle_mode="blocked"``; ``method="jacobi"`` the
     reference's Shotgun-style ablation, every coordinate of a block at
     once from one residual (the ablation driver's baseline). The residual
-    method of the reference is not ported to the batched path.
+    method of the reference is not ported to the batched path. ``reduce``
+    as in :func:`cd_cycle_gram`.
     """
     if method == "blocked":
         method, cycle_mode = "gram", "blocked"
     if method == "jacobi":
-        return _solve_jacobi(Xt, w, z, beta, lam, n_cycles=n_cycles, nu=nu)
+        return _solve_jacobi(Xt, w, z, beta, lam, n_cycles=n_cycles, nu=nu, reduce=reduce)
     if method != "gram":
         raise ValueError(
             f"method {method!r} is not ported to the batched solve; use "
@@ -286,14 +291,14 @@ def solve_subproblem(Xt, w, z, beta, lam, *, method: str = "gram",
     r = z.expand(Xt.shape[0], -1)                   # dbeta = 0 initially
     for _ in range(n_cycles):
         dbeta, r = cd_cycle_gram(Xt, w, r, beta, dbeta, lam, nu=nu,
-                                 cycle_mode=cycle_mode, block=block)
+                                 cycle_mode=cycle_mode, block=block, reduce=reduce)
     tile = Xt.shape[3]
     dm = sum((Xt[:, t] @ dbeta[:, t * tile:(t + 1) * tile, None])[..., 0]
              for t in range(Xt.shape[1]))
     return dbeta, dm
 
 
-def _solve_jacobi(Xt, w, z, beta, lam, *, n_cycles: int, nu: float):
+def _solve_jacobi(Xt, w, z, beta, lam, *, n_cycles: int, nu: float, reduce=None):
     """The reference's ``method="jacobi"``: per block, G and c over all of
     its features (the tiles side by side; padded features have G = 0 and
     stay 0) and one Jacobi step of every coordinate per cycle."""
@@ -305,6 +310,8 @@ def _solve_jacobi(Xt, w, z, beta, lam, *, n_cycles: int, nu: float):
         wX = w[None, :, None] * Xb
         G = Xb.transpose(1, 2) @ wX
         c = (wX.transpose(1, 2) @ r[..., None])[..., 0]
+        if reduce is not None:
+            G, c = reduce(G, c)
         d = cd_cycle_jacobi_tile(G, c, beta, dbeta, lam, nu)
         dbeta = dbeta + d
         r = r - (Xb @ d[..., None])[..., 0]

@@ -1,25 +1,51 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
-"""The port's mesh description, the counterpart of ``repro/launch/mesh.py``
-``make_dev_mesh``.
+"""The port's meshes, the counterpart of ``repro/launch/mesh.py``.
 
-The reference's mesh has a ``data`` axis (example shards) and a
-``model`` axis (feature blocks, the paper's M machines). On one card the
-``model`` axis is the leading batch axis the port already runs the M
-blocks on (``core.subproblem.layout_blocks``), so a mesh here is only a
-description: its shape, its axis names and the device the solve runs on.
-A ``data`` extent above 1 needs example shards on several cards and
-collectives, which the multi-GPU slice adds.
+A mesh has a ``data`` axis (example shards) and a ``model`` axis whose
+extent M is the number of feature blocks, the paper's M machines. Two
+kinds, with one interface (``shape``, ``axis_names``, ``device``, the
+rank's coordinates and ``all_reduce``):
+
+* :class:`DevMesh` (:func:`make_dev_mesh`) -- one device, data extent
+  1: the M blocks run as the leading batch axis of every tensor
+  (``core.subproblem.layout_blocks``), and every collective is a no-op;
+* :class:`ProcMesh` (:func:`make_process_mesh`) -- the ranks of an
+  initialised ``torch.distributed`` world laid out as a (data, R) grid,
+  rank = d * R + r. Rank (d, r) holds example shard d and runs the
+  blocks ``[r * M / R, (r + 1) * M / R)`` as one batch, as a
+  :class:`DevMesh` runs all M. Each axis has its own process group.
+
+The mesh's one collective is ``all_reduce(SUM)``, which NCCL and gloo
+both run on CUDA tensors. An axis of one rank skips its
+collective, so a one-rank :class:`ProcMesh` computes bit for bit what a
+:class:`DevMesh` computes. Each reduction hands every rank the same bits,
+so every rank takes the same branch on a reduced value. A
+:class:`ProcMesh` counts its collectives and their bytes per axis
+(:meth:`ProcMesh.stats`).
+
+The backend is the caller's choice, made once in ``init_process_group``
+and named again to :func:`make_process_mesh`: ``"nccl"`` wants one card
+per rank and raises if two ranks share one; ``"gloo"`` serves ranks on
+the CPU and ranks that share one card. Nothing switches backends, and
+nothing moves to the CPU when a card is missing.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Tuple
+import os
+import socket
+import zlib
+from collections import Counter
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
 AXIS_NAMES: Tuple[str, str] = ("data", "model")
+#: the process groups' default deadline: a collective that hangs fails
+DEFAULT_TIMEOUT = timedelta(seconds=300)
 
 
 @dataclass(frozen=True)
@@ -38,6 +64,22 @@ class DevMesh:
     def shape(self) -> Dict[str, int]:
         return {"data": self.data, "model": self.model}
 
+    # the one-rank case of ProcMesh's interface
+    data_rank = 0
+    model_rank = 0
+    model_ranks = 1
+    ranks = 1
+
+    @property
+    def local_blocks(self) -> int:
+        return self.model
+
+    def axis_ranks(self, axis) -> int:
+        return 1
+
+    def all_reduce(self, t: torch.Tensor, axis) -> torch.Tensor:
+        return t
+
 
 def make_dev_mesh(data: int = 1, model: int = 4, *,
                   device=DEFAULT_DEVICE) -> DevMesh:
@@ -47,7 +89,250 @@ def make_dev_mesh(data: int = 1, model: int = 4, *,
         raise ValueError(f"model extent must be >= 1, got {model}")
     if data != 1:
         raise ValueError(
-            f"data extent {data} needs example shards across cards and "
-            f"collectives: not ported yet (ROADMAP queue 1, item 9); use "
-            f"make_dev_mesh(1, model)")
+            f"data extent {data} needs example shards on several ranks: build a "
+            f"process mesh over a torch.distributed world "
+            f"(make_process_mesh({data}, {model}, backend=...)); make_dev_mesh "
+            f"takes data extent 1")
     return DevMesh(data=1, model=int(model), device=resolve_device(device))
+
+
+def _axes(axis) -> Tuple[str, ...]:
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in names:
+        if a not in AXIS_NAMES:
+            raise ValueError(f"unknown mesh axis {a!r}: expected one of {AXIS_NAMES}")
+    return tuple(a for a in AXIS_NAMES if a in names)
+
+
+@dataclass(eq=False)
+class ProcMesh:
+    """A (data, model) mesh over the ranks of a ``torch.distributed``
+    world (see the module docstring); built by :func:`make_process_mesh`.
+
+    ``model`` is M, the feature blocks; ``model_ranks`` (R) ranks share
+    them, ``local_blocks`` = M / R each. ``groups`` maps ``"data"``,
+    ``"model"`` and ``("data", "model")`` to this rank's process group on
+    that axis (None for an axis of one rank: its collectives are
+    skipped)."""
+
+    data: int
+    model: int
+    model_ranks: int
+    backend: str
+    device: torch.device
+    rank: int
+    groups: Dict[Tuple[str, ...], object] = field(repr=False)
+    calls: Counter = field(default_factory=Counter, repr=False)
+    nbytes: Counter = field(default_factory=Counter, repr=False)
+
+    @property
+    def axis_names(self) -> Tuple[str, str]:
+        return AXIS_NAMES
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def ranks(self) -> int:
+        return self.data * self.model_ranks
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model_ranks
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_ranks
+
+    @property
+    def local_blocks(self) -> int:
+        return self.model // self.model_ranks
+
+    def axis_ranks(self, axis) -> int:
+        """The ranks along ``axis`` (``"data"``, ``"model"`` or both)."""
+        axes = _axes(axis)
+        return ((self.data if "data" in axes else 1)
+                * (self.model_ranks if "model" in axes else 1))
+
+    def all_reduce(self, t: torch.Tensor, axis) -> torch.Tensor:
+        """The sum of ``t`` over the ranks of ``axis`` (``"data"``,
+        ``"model"`` or both), as a new tensor; ``t`` itself is returned
+        when the axis has one rank."""
+        import torch.distributed as dist
+
+        axes = _axes(axis)
+        group = self.groups.get(axes)
+        if group is None:
+            return t
+        out = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        key = "+".join(axes)
+        self.calls[key] += 1
+        self.nbytes[key] += out.numel() * out.element_size()
+        return out
+
+    def stats(self) -> Dict[str, Tuple[int, int]]:
+        """Collectives made since the last :meth:`reset_stats`, per axis:
+        ``{axis: (calls, bytes)}``."""
+        return {k: (self.calls[k], self.nbytes[k]) for k in sorted(self.calls)}
+
+    def reset_stats(self) -> None:
+        self.calls.clear()
+        self.nbytes.clear()
+
+
+def check_devices(backend: str, entries: Sequence[Tuple[int, str]]) -> None:
+    """Raise if the backend cannot serve the ranks' devices: ``entries``
+    holds each rank's (host id, device) in rank order. NCCL wants one
+    card per rank."""
+    if backend != "nccl":
+        return
+    seen: Dict[Tuple[int, str], int] = {}
+    for rank, (host, dev) in enumerate(entries):
+        if not str(dev).startswith("cuda"):
+            raise ValueError(f"backend 'nccl' needs a card per rank; rank {rank} is on {dev}")
+        if (host, dev) in seen:
+            raise ValueError(
+                f"backend 'nccl' wants one card per rank, but ranks {seen[(host, dev)]} "
+                f"and {rank} share {dev} on one host: give each rank its own card "
+                f"(torch.cuda.set_device(LOCAL_RANK)), or choose backend 'gloo' for "
+                f"ranks that share a card")
+        seen[(host, dev)] = rank
+
+
+def _mesh_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def make_process_mesh(data: int, model: int, *, backend: str, device=DEFAULT_DEVICE,
+                      timeout: timedelta = DEFAULT_TIMEOUT) -> ProcMesh:
+    """A (data, model) :class:`ProcMesh` over the initialised world: every
+    rank calls it with the same arguments. ``data`` must divide the world
+    size W, and R = W / data must divide ``model`` (M blocks). ``backend``
+    must be the world's own (``init_process_group``'s choice). Builds
+    one process group per axis line (every rank builds every group, in
+    one order) and checks, with one all_reduce, that every rank asked for
+    the same mesh and, under NCCL, that no two ranks share a card."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_process_mesh needs an initialised torch.distributed world "
+            "(init_process_group(backend, init_method=..., world_size=..., rank=...) "
+            "or torchrun); make_dev_mesh(1, M) runs one device")
+    world_backend = str(dist.get_backend())
+    if world_backend != backend:
+        raise ValueError(f"the world was initialised with backend {world_backend!r}, the "
+                         f"mesh asks for {backend!r}: a mesh never switches backends")
+    if backend == "nccl" and torch.device(device).type != "cuda":
+        raise ValueError(f"backend 'nccl' needs a card per rank, got device={device!r}")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data < 1 or model < 1 or world % data:
+        raise ValueError(f"data extent {data} must divide the world size {world}")
+    r_model = world // data
+    if model % r_model:
+        raise ValueError(f"{r_model} ranks on the model axis must divide the model "
+                         f"extent {model} (the feature blocks)")
+    dev = _mesh_device(device)
+    groups: Dict[Tuple[str, ...], object] = {}
+
+    def line(axes, members_list):
+        for members in members_list:
+            if len(members) < 2:
+                continue
+            g = dist.new_group(list(members), timeout=timeout, backend=backend)
+            if rank in members:
+                groups[axes] = g
+
+    line(("data",), [[d * r_model + r for d in range(data)] for r in range(r_model)])
+    line(("model",), [[d * r_model + r for r in range(r_model)] for d in range(data)])
+    if world > 1:
+        groups[("data", "model")] = dist.group.WORLD
+    mesh = ProcMesh(data=data, model=model, model_ranks=r_model, backend=backend,
+                    device=dev, rank=rank, groups=groups)
+    # every rank's (data, model) and (host, device), in one reduction
+    host = zlib.crc32(socket.gethostname().encode())
+    # NCCL reduces only on the card; gloo takes the host copy
+    slot = torch.zeros(world, 4, dtype=torch.int64,
+                       device=dev if backend == "nccl" else "cpu")
+    slot[rank] = torch.tensor([data, model, host, -1 if dev.index is None else dev.index])
+    # allow[torch-host-sync]: one read when the mesh is built, before any solve
+    table = mesh.all_reduce(slot, ("data", "model")).tolist()
+    mesh.reset_stats()
+    if any(row[0] != data or row[1] != model for row in table):
+        raise ValueError(f"the ranks asked for different meshes: {[tuple(r[:2]) for r in table]}")
+    check_devices(backend, [(row[2], f"cuda:{row[3]}" if row[3] >= 0 else "cpu")
+                            for row in table])
+    return mesh
+
+
+def init_process_mesh(data: int, model: int, *, backend: str, init_method: str,
+                      world_size: int, rank: int, device=DEFAULT_DEVICE,
+                      timeout: timedelta = DEFAULT_TIMEOUT) -> ProcMesh:
+    """``init_process_group`` with the caller's backend, address, world
+    size and rank, then :func:`make_process_mesh`. Under NCCL the caller
+    sets each rank's card first (``torch.cuda.set_device``)."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size,
+                            rank=rank, timeout=timeout)
+    return make_process_mesh(data, model, backend=backend, device=device, timeout=timeout)
+
+
+def make_production_mesh(*, data: int = 1, model: int = 16, backend: str = "nccl",
+                         timeout: timedelta = DEFAULT_TIMEOUT) -> ProcMesh:
+    """The ``torchrun`` world as a (data, model) mesh, one card per
+    ``LOCAL_RANK``: reads ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` and ``MASTER_PORT`` (torchrun sets them), sets the
+    rank's card and initialises the world (unless it is initialised
+    already). ``model`` is the number of feature blocks (16, as the
+    paper's timing runs)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        try:
+            rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+            local = int(os.environ["LOCAL_RANK"])
+            addr = f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}"
+        except KeyError as e:
+            raise RuntimeError(f"make_production_mesh runs under torchrun: {e} is not set "
+                               f"(torchrun --nproc-per-node N ...)") from None
+        resolve_device("cuda")
+        torch.cuda.set_device(local)
+        dist.init_process_group(backend, init_method=addr, world_size=world, rank=rank,
+                                timeout=timeout)
+    return make_process_mesh(data, model, backend=backend, device="cuda", timeout=timeout)
+
+
+def parse_mesh(spec: str, *, backend: Optional[str] = None, device=DEFAULT_DEVICE):
+    """CLI mesh spec: ``prod`` (:func:`make_production_mesh`) or ``DxM``:
+    over an initialised world a :class:`ProcMesh` with the world's
+    ``backend`` (named by the caller), else a (1, M) :class:`DevMesh`."""
+    import torch.distributed as dist
+
+    if spec == "prod":
+        return make_production_mesh(backend=backend or "nccl")
+    try:
+        data, model = (int(x) for x in spec.split("x"))
+    except ValueError:
+        raise ValueError(f"mesh spec {spec!r}: expected 'prod' or 'DxM'") from None
+    if dist.is_available() and dist.is_initialized():
+        if backend is None:
+            raise ValueError("a mesh over a torch.distributed world needs backend= "
+                             "('nccl' or 'gloo')")
+        return make_process_mesh(data, model, backend=backend, device=device)
+    return make_dev_mesh(data, model, device=device)
+
+
+def num_chips(mesh) -> int:
+    """The devices a mesh runs on: its ranks (one for a :class:`DevMesh`)."""
+    return int(getattr(mesh, "ranks", 1))
+
+
+def is_process_mesh(mesh) -> bool:
+    """Whether ``mesh`` spans ranks of a torch.distributed world."""
+    return isinstance(mesh, ProcMesh)

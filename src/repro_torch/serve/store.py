@@ -72,10 +72,17 @@ class PathStore:
     stack lives on the mesh's device with its feature axis padded to
     ``M * tile``, the slab partition of ``ShardedDesign``'s residency, so
     that served scores are bit-identical to
-    ``LogisticL1.decision_function`` through the same mesh."""
+    ``LogisticL1.decision_function`` through the same mesh. A store on a
+    process mesh (``launch.mesh.ProcMesh``) is not ported yet and raises."""
 
     def __init__(self, result: Optional[PathResult] = None, *, mesh=None,
                  tile: int = 128, device=DEFAULT_DEVICE):
+        from repro_torch.launch.mesh import is_process_mesh
+
+        if is_process_mesh(mesh):
+            raise NotImplementedError(
+                "serving from a process-mesh store is not ported yet (ROADMAP queue 1 "
+                "item 4); build the store on one device (mesh=None or a DevMesh)")
         self.mesh = mesh
         self.tile = tile
         self.device = mesh.device if mesh is not None else resolve_device(device)

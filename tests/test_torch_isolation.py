@@ -45,6 +45,14 @@ def test_the_walk_covers_obs_and_resilience():
         assert name in checked, name
 
 
+def test_the_walk_covers_the_process_mesh():
+    """The process mesh's modules (``sharding/`` included) are checked."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    for name in ("sharding/__init__.py", "sharding/collect.py", "launch/mesh.py",
+                 "core/distributed.py"):
+        assert name in checked, name
+
+
 @pytest.mark.parametrize("path", CHECKED, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_reference(path):
     bad = [(root, line) for root, line in _imported_roots(path) if root in FORBIDDEN]

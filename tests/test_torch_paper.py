@@ -36,9 +36,9 @@ from repro_torch.data.synthetic import make_glm_dataset
 
 torch.set_num_threads(2)
 OPTS = dict(num_blocks=4, tile=32)
-#: reference names of ``repro.core`` the port does not have yet (multi-GPU,
-#: ROADMAP queue 1 item 4)
-NOT_YET = {"fit_distributed", "make_dglmnet_step", "make_dglmnet_step_sparse"}
+#: reference names of ``repro.core`` the port does not have yet (none since
+#: the process mesh ported ``fit_distributed`` and ``make_dglmnet_step(_sparse)``)
+NOT_YET = set()
 #: the names this slice adds
 SLICE = ("TGOptions", "truncated_gradient_fit", "FitState", "dglmnet_iteration",
          "fit_python_loop")
@@ -67,8 +67,12 @@ def test_core_reexports_every_reference_name():
     from repro_torch.core.truncated_gradient import TGOptions as T2
 
     assert TGOptions is T2 and tcore.FitState is FitState
+    from repro_torch.core.distributed import fit_distributed, make_dglmnet_step_sparse
+
+    assert tcore.fit_distributed is fit_distributed
+    assert tcore.make_dglmnet_step_sparse is make_dglmnet_step_sparse
     with pytest.raises(AttributeError):
-        tcore.fit_distributed  # noqa: B018
+        tcore.not_a_reference_name  # noqa: B018
 
 
 @pytest.mark.parametrize("overrides", [dict(), dict(cycle_mode="blocked", block=8),
