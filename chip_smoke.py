@@ -70,7 +70,8 @@ of which fails the run with a non-zero exit:
    host syncs = iterations + 2 (one entry read of the slabs' largest
    row), held-out accuracy through ``decision_function`` on the test
    slabs, fit wall, ms per iteration and peak memory (the profile phase
-   counts the device launches per tile step of each mode);
+   counts the device launches per tile step of each mode); a digest of
+   the bits of beta, the history and the scores, to diff two runs;
 8. path -- the screened regularization path (paper Algorithm 5)
    ``LogisticL1(opts, mesh=make_dev_mesh(1, 16)).path(SlabDesign(...), y,
    path_len=8, eval_fn=make_design_eval(test slabs))`` on the cell, both
@@ -88,8 +89,8 @@ of which fails the run with a non-zero exit:
    solves' reads; the blocked path runs under ``compile_sanitizer(0)``
    (no kernel built or loaded). Per point: lambda, active, capacity, k_cap, KKT rounds,
    deferred, nnz, f, iterations, wall, test AUPRC and accuracy; then the
-   path's wall, its wall down to lambda_max/16, one screen pass and the
-   peak memory;
+   path's wall, its wall down to lambda_max/16, one screen pass, the
+   peak memory and a digest of the bits of the betas and f;
 8a. streamed path -- the cell split into 16 feature-range buckets of
    65,536 features (a ``SlabBuckets``), ``LogisticL1.path`` on a (1, 16)
    mesh, sequential, ``path_len`` 4 (lambda_max/2 ... /16), with the
@@ -181,17 +182,23 @@ of which fails the run with a non-zero exit:
    engine's door, every kernel of the path launched; then four
    co-located gloo ranks (spawned ``--mesh-rank`` processes, each under
    a deadline), a (2, 16) mesh of 2 data x 2 model ranks of 8 blocks,
-   each drawing the cells from their seeds and keeping its shard: the
-   cell as (p, 2, K') slabs fitted for a fixed 8 iterations, twice,
+   each drawing the cells from their seeds and keeping only its piece,
+   its example shard of its half of the padded features (gated: its
+   resident slab bytes are its piece's, the epsilon shard (n / 2, 1024)):
+   the cell as (p, 2, K') slabs fitted for a fixed 8 iterations, twice,
    against phase 7's fit cut at 8 (objective gap < 1e-4, betas within
    rtol 1e-2 / atol 1e-3; the ranks' betas and histories bit-equal, the
    two runs' equality reported; each kernel launched on every rank in
    every iteration); the epsilon cell on (2, 16) against phase 4's
    sequential fit (gap < 1e-4); a 3-point path (lambda_max/2 ... /8) on
    (2, 16), every point OK, the independent KKT pass of phase 8 at each
-   point and each f within 1e-4 of phase 8's. Prints, per rank, the
-   wall and ms per iteration, the collectives per iteration and their
-   bytes, peak memory, and the card's name and power limit (co-located
+   point and each f within 1e-4 of phase 8's; ``decision_function`` of
+   phase 7's beta on (2, 16): all n rows on every rank, bit-equal across
+   ranks, within 1e-5 (relative to the largest score) of phase 7's
+   scores. Prints, per rank, its piece's bytes beside the whole shard's,
+   the wall and ms per iteration, the collectives per iteration and their
+   bytes (and the path's model calls per lambda), peak memory beside the
+   parent commit's, and the card's name and power limit (co-located
    gloo ranks stage every collective through the host and share one
    card: not a multi-card speed);
 10. LM kernels -- ``flash_attention`` against its plain version at the
@@ -275,6 +282,7 @@ import time
 import traceback
 import warnings
 from collections import Counter
+from importlib import import_module
 from dataclasses import replace
 from datetime import timedelta
 from pathlib import Path
@@ -297,6 +305,19 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
+
+
+def digest(torch, *values) -> str:
+    """The first 16 hex digits of the SHA-256 of ``values`` (tensors or
+    sequences of floats) as float32 bytes: two runs that print the same
+    digest hold the same bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in values:
+        t = v.detach().cpu() if torch.is_tensor(v) else torch.tensor(list(v), dtype=torch.float64)
+        h.update(t.to(torch.float32).contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +452,9 @@ def phase_build(torch):
 
 def phase_kernels(torch, gen):
     from repro_torch.core.subproblem import blocked_cycle_modes
-    from repro_torch.kernels import blocked_cd, gram_cd, logistic_stats, ref
+    from repro_torch.kernels import blocked_cd, ref
+    gram_cd = import_module("repro_torch.kernels.gram_cd")
+    logistic_stats = import_module("repro_torch.kernels.logistic_stats")
 
     errs = {}
     # logistic_stats: main-path n, a ragged n, n below one block, a
@@ -816,7 +839,9 @@ def phase_sparse_kernels(torch, gen, cell):
     shapes and on adversarial slabs; two launches bit-equal. Returns the
     errors and the inputs the times phase reuses."""
     from repro_torch.core.distributed import layout_slabs
-    from repro_torch.kernels import ops, ref, slab_gram, slab_spmv
+    from repro_torch.kernels import ops, ref
+    slab_gram = import_module("repro_torch.kernels.slab_gram")
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
     from repro_torch.kernels.slab_spmv import SlabOrder, slab_order
 
     (rows, vals, y), _ = cell
@@ -1027,7 +1052,8 @@ def path_spmv_checks(torch, gen, ra, vla, na):
     l`` bit-equal to ``slab_spmv`` with ``betas[l]`` for every l; two
     launches bit-equal. Returns the largest error and the two serve
     shapes' inputs for the times phase."""
-    from repro_torch.kernels import ref, slab_spmv
+    from repro_torch.kernels import ref
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
     from repro_torch.kernels.slab_spmv import slab_order
 
     L, err = SERVE_PATH_LEN, 0.0
@@ -1155,6 +1181,8 @@ def phase_sparse_path(torch, cell, card):
               f"sparse {mode}: {syncs} host reads, expected {res.n_iters} iterations + 1 "
               f"fetch + 1 entry read")
         check(acc > 0.5, f"sparse {mode}: held-out accuracy {acc} is not above chance")
+        print(f"[sparse] {mode}: bits (sha256) of beta {digest(torch, res.beta)}, history "
+              f"{digest(torch, h)}, scores {digest(torch, scores)}")
         fits[mode] = (wall, res.n_iters, syncs, peak, res.f, res.beta, res.objective_history)
     return launches, fits, lam
 
@@ -1519,6 +1547,8 @@ def phase_path(torch, cell, card, direct):
                                                torch.ones(p, dtype=torch.bool, device="cuda"))
         print(f"[path] {mode}: the direct fit at lambda_max/16 (no screen): {d_bad} features "
               f"with beta_j = 0 over lam (1 + {KKT_TOL}) + 1e-7, max |g_j| / lam {d_ratio:.6f}")
+        print(f"[path] {mode}: bits (sha256) of betas {digest(torch, res.betas)}, f "
+              f"{digest(torch, res.f)}")
         walls[mode] = dict(wall_ms=wall * 1e3, to16_ms=to16, peak=peak, syncs=syncs,
                            solves=len(solves), iters=iters, screen_ms=screen_ms, result=res,
                            solves_ms=sum(s["ms"] for s in solves),
@@ -1700,10 +1730,13 @@ def mesh_rank_main(work: Path, rank: int) -> int:
     n = y.shape[0]
     rows2, vals2 = split_examples(torch, rows, vals, n, PM_DATA)
     del rows, vals
+    # the rank keeps its piece: its shard of its half of the features
     design = ShardedDesign(SlabDesign(rows2, vals2, n), mesh, tile=SPARSE_OPTS["tile"])
     out["k2"] = int(rows2.shape[2])
     del rows2, vals2
     torch.cuda.empty_cache()
+    out["piece"] = dict(lo=design.inner.lo, p_work=design.inner.p_work,
+                        nbytes=design.slab_nbytes())
     opts = DGLMNETOptions(cycle_mode="sequential", **{**SPARSE_OPTS, "max_iters": PM_ITERS})
     est = LogisticL1(opts, mesh=mesh, device=dev)
     out["sparse"] = []
@@ -1728,6 +1761,17 @@ def mesh_rank_main(work: Path, rank: int) -> int:
                        active=[int(pt.screen["active"]) for pt in res],
                        solves=len(log.rows), iters=sum(s["iters"] for s in log.rows),
                        reads=reads, counts=counts, stats=stats, peak=peak)
+    out["piece"]["resident"] = design.residency_stats()[SPARSE_OPTS["tile"]]["total_bytes"]
+    # scoring: every rank gets all n rows of phase 7's beta
+    from repro_torch.kernels import ops
+
+    beta7 = torch.from_numpy(np.load(work / "beta7.npy")).to(dev)
+    ops.reset_launch_counts()
+    mesh.reset_stats()
+    scores = est.decision_function(design, beta=beta7)
+    np.save(work / f"score_r{rank}.npy", scores.cpu().numpy())
+    out["score"] = dict(rows=int(scores.shape[0]), counts=dict(ops.launch_counts()),
+                        stats=mesh.stats())
     del design, est, y, res
     torch.cuda.empty_cache()
     from repro_torch.configs.glm import GLM_EPSILON
@@ -1739,6 +1783,8 @@ def mesh_rank_main(work: Path, rank: int) -> int:
     y = ds.y_train
     del ds
     torch.cuda.empty_cache()
+    out["dense_shape"] = [int(d) for d in design.inner.X.shape]
+    out["eps_rows"] = int(y.shape[0])
     opts = DGLMNETOptions(num_blocks=SPARSE_M, tile=128, max_iters=100,
                           cycle_mode="sequential", block=16)
     res, wall, reads, counts, stats, peak = _rank_run(
@@ -1866,6 +1912,9 @@ def phase_process_mesh(torch, card, cell, sparse_fit, sparse_lam: float, eps_n: 
 
         # 3-5. four co-located gloo ranks: the (2, 16) mesh on the cells
         (work / "mesh").mkdir()
+        np.save(work / "mesh" / "beta7.npy", beta7.cpu().numpy())
+        scores7 = LogisticL1(opts, mesh=make_dev_mesh(1, SPARSE_M), device="cuda"
+                             ).decision_function(SlabDesign(rows, vals, n), beta=beta7)
         t0 = time.perf_counter()
         got = spawn_ranks(work / "mesh", PM_WORLD,
                           dict(task="mesh", device="cuda", p=p, sparse_lam=sparse_lam,
@@ -1873,6 +1922,40 @@ def phase_process_mesh(torch, card, cell, sparse_fit, sparse_lam: float, eps_n: 
         spawn_s = time.perf_counter() - t0
         mw = work / "mesh"
         r0 = got[0]
+        # each rank holds its piece: its shard of its 1 / R of the padded features
+        r_model = PM_WORLD // PM_DATA
+        p_work = p + (-p) % (SPARSE_M * SPARSE_OPTS["tile"])
+        eps_pad = 2000 + (-2000) % (SPARSE_M * 128)
+        for g in got:
+            d_rank, m_rank, _ = g["coords"]
+            pc = g["piece"]
+            want = p_work // r_model * r0["k2"] * 8
+            print(f"[mesh] rank {g['rank']} (data {d_rank}, model {m_rank}) holds slab features "
+                  f"[{pc['lo']}, {pc['lo'] + p_work // r_model}) of {p_work}: {pc['nbytes'] / 1e6:.1f} "
+                  f"MB resident ({pc['resident'] / 1e6:.1f} MB in its residency; the parent held "
+                  f"every feature, {p_work * r0['k2'] * 8 / 1e6:.1f} MB); epsilon shard "
+                  f"{tuple(g['dense_shape'])} (the parent's ({g['eps_rows'] // PM_DATA}, 2000)); "
+                  f"peaks: sparse fit {g['sparse'][0]['peak']:.2f} GB, path "
+                  f"{g['path']['peak']:.2f} GB, epsilon {g['dense']['peak']:.2f} GB (the parent's "
+                  f"2.33 / 2.37, -, 4.26 GB), on {card}")
+            check(pc["nbytes"] == pc["resident"] == want and pc["lo"] == m_rank * (p_work // r_model),
+                  f"mesh: rank {g['rank']} holds {pc} slab bytes, not its piece's {want}")
+            check(g["dense_shape"] == [g["eps_rows"] // PM_DATA, eps_pad // r_model],
+                  f"mesh: rank {g['rank']} holds an epsilon shard of {g['dense_shape']}")
+        # decision_function: all n rows on every rank, phase 7's scores
+        s0 = np.load(mw / "score_r0.npy")
+        ref = scores7.cpu().numpy()
+        err = float(np.abs(s0 - ref).max() / max(np.abs(ref).max(), 1e-30))
+        for g in got:
+            check(g["score"]["rows"] == n and np.array_equal(np.load(mw / f"score_r{g['rank']}.npy"),
+                                                             s0),
+                  f"mesh decision_function: rank {g['rank']} has {g['score']['rows']} rows or "
+                  f"differs from rank 0")
+            launches["slab_spmv"] += g["score"]["counts"].get("slab_spmv", 0)
+        print(f"[mesh] decision_function on (2, {SPARSE_M}): {s0.shape[0]} rows on every rank, "
+              f"bit-equal across ranks; max |score - phase 7's| / max |phase 7's| {err:.3g}; "
+              f"collectives {r0['score']['stats']}")
+        check(err <= 1e-5, f"mesh decision_function vs phase 7's scores: relative error {err}")
         for g in got:
             d_rank, m_rank, blocks = g["coords"]
             for i, s in enumerate(g["sparse"]):
@@ -1884,7 +1967,9 @@ def phase_process_mesh(torch, card, cell, sparse_fit, sparse_lam: float, eps_n: 
             pth, dn = g["path"], g["dense"]
             print(f"[mesh] rank {g['rank']} path ({PM_PATH_LEN} points): wall {pth['wall']:.3f} "
                   f"s, {pth['solves']} solves of {pth['iters']} iterations, collectives "
-                  f"{pth['stats']}, peak {pth['peak']:.2f} GB, on {card}")
+                  f"{pth['stats']}, model calls per lambda "
+                  f"{pth['stats'].get('model', (0, 0))[0] / PM_PATH_LEN:.1f}, peak "
+                  f"{pth['peak']:.2f} GB, on {card}")
             print(f"[mesh] rank {g['rank']} epsilon dense: {dn['iters']} iterations, wall "
                   f"{dn['wall']:.3f} s, {dn['wall'] * 1e3 / dn['iters']:.1f} ms per iteration, "
                   f"collectives per iteration {_per_iter(dn['stats'], dn['iters'])}, peak "
@@ -2143,7 +2228,7 @@ def serve_stage_times(torch, scorer, batcher, reqs, lams, card):
     the host-to-device copy (``put_slab`` from pinned staging),
     ``slab_order`` and the kernel (CUDA events each), then the scorer's
     whole call."""
-    from repro_torch.kernels import slab_spmv
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
     from repro_torch.kernels.slab_spmv import slab_order
     from repro_torch.serve.scoring import stage_batch
 
@@ -2770,7 +2855,8 @@ def phase_lm_kernels(torch, gen):
     """flash_attention against its plain version, float32 and bfloat16,
     causal and full; two launches bit-equal. Returns the error at the
     main path's case (the cell's shape, bfloat16, causal)."""
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import ref
+    flash_attention = import_module("repro_torch.kernels.flash_attention")
 
     err = None
     for label, B, S, H, Hk, D in flash_shapes():
@@ -3172,7 +3258,8 @@ def lm_time_rows(torch):
     """Row 6 of the kernel table: the kernel, its plain version and
     scaled_dot_product_attention at the cell's attention shape (bfloat16,
     causal, 32 query heads on 4 KV heads)."""
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import ref
+    flash_attention = import_module("repro_torch.kernels.flash_attention")
 
     B, S, H, Hk, D = LM_BATCH, LM_PROMPT, 32, 4, 64
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -3272,7 +3359,9 @@ def sparse_time_rows(torch, inp):
     ``slab_gram``'s kernel and plain version include the gathers of w and
     r; the library call (a CSR x CSR product) starts from gathered
     operands, so its time leaves them out."""
-    from repro_torch.kernels import ops, ref, slab_gram, slab_spmv
+    from repro_torch.kernels import ops, ref
+    slab_gram = import_module("repro_torch.kernels.slab_gram")
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
 
     R, V, d, r, order, n = inp["R"], inp["V"], inp["d"], inp["r"], inp["order"], inp["n"]
     w = inp["w"]
@@ -3346,7 +3435,8 @@ def serve_time_rows(torch, inputs):
     """Row 5b of the kernel table: ``slab_spmv``'s path mode at the local
     serve shape (one batch row of 2^20 x 8 slots), its plain version; no
     single PyTorch call gathers a per-row coefficient."""
-    from repro_torch.kernels import ref, slab_spmv
+    from repro_torch.kernels import ref
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
 
     inp = inputs[0]
     out = torch.zeros(inp["rows"].shape[0], inp["n_loc"], device="cuda")
@@ -3365,7 +3455,7 @@ def serve_time_rows(torch, inputs):
 
 def serve_extra_times(torch, inputs, flush, card):
     """The path mode at the mesh store's shape, beside its byte bound."""
-    from repro_torch.kernels import slab_spmv
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
 
     inp = inputs[1]
     out = torch.zeros(inp["rows"].shape[0], inp["n_loc"], device="cuda")
@@ -3381,7 +3471,7 @@ def spmv_extra_times(torch, inp, flush, card):
     """slab_spmv without its fused dbeta update at the tile step, and at
     the margins' shape (16 blocks of p/16 features into zeroed margins),
     each beside its byte bound."""
-    from repro_torch.kernels import slab_spmv
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
     from repro_torch.kernels.slab_spmv import slab_order
 
     R, V, d, r, order, n = inp["R"], inp["V"], inp["d"], inp["r"], inp["order"], inp["n"]
@@ -3409,7 +3499,9 @@ def spmv_extra_times(torch, inp, flush, card):
 
 def phase_times(torch, gen, errs, launches, card, sparse_inputs, ds):
     from repro_torch.core.subproblem import blocked_cycle_modes
-    from repro_torch.kernels import blocked_cd, gram_cd, logistic_stats, ref
+    from repro_torch.kernels import blocked_cd, ref
+    gram_cd = import_module("repro_torch.kernels.gram_cd")
+    logistic_stats = import_module("repro_torch.kernels.logistic_stats")
 
     # 1 GB > L2; zeroing it also gives the host time to queue the timed call
     flush = torch.empty(256 * 2 ** 20, device="cuda")
@@ -3682,7 +3774,8 @@ def phase_sparse_host(torch, card, repeats: int = 2):
     from repro_torch.core.dglmnet import DGLMNETOptions
     from repro_torch.core.distributed import layout_slabs, local_subproblem_sparse
     from repro_torch.core.subproblem import NU
-    from repro_torch.kernels import ops, slab_spmv
+    from repro_torch.kernels import ops
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
     from repro_torch.launch.mesh import make_dev_mesh
 
     t0 = time.perf_counter()

@@ -13,8 +13,9 @@ all on the original feature axis.
   (:class:`~repro_torch.data.byfeature.SlabBuckets`);
 * :class:`ShardedDesign` -- a design on a mesh
   (``repro_torch.launch.mesh``): the M feature blocks of the by-feature
-  solve, on one device or, on a process mesh, the rank's example shard
-  of every feature (:func:`shard_examples`). Slab layouts live there as
+  solve, on one device or, on a process mesh, the rank's piece, its
+  example shard of the features it owns (:func:`shard_examples`,
+  :class:`SlabPiece`). Slab layouts live there as
   mesh-padded work buckets (``data.residency``): on the device once, or, under a
   ``device_budget_bytes`` below their bytes, streamed from pinned host
   memory through every pass; margins, correlation and the path's screen
@@ -362,7 +363,9 @@ class _MeshSlabState:
     """Per-(design, tile) mesh residency: the padded work buckets (on the
     device, or streamed from the host under a budget) and the work-axis
     bookkeeping of the screened path, on the mesh's device. Built once,
-    cached on the owning :class:`ShardedDesign`."""
+    cached on the owning :class:`ShardedDesign`. On a split design the
+    buckets are the rank's pieces, which cover the work axis from ``lo``
+    on; the bookkeeping is whole."""
 
     residency: BucketResidencyManager
     feat_map: torch.Tensor       # (p_work,) int64 original id per work position, sentinel p
@@ -373,48 +376,117 @@ class _MeshSlabState:
     cap_tile: int
     max_row: torch.Tensor        # the buckets' largest row index (a device scalar)
     checked: bool = False        # max_row read and checked against n_loc
+    lo: int = 0                  # the first work position the buckets hold
 
     def iter_buckets(self):
         """(row_idx, values, feat_idx) device buckets in work order."""
         return self.residency.iter_buckets()
 
 
-def shard_examples(inner, mesh, n: int):
-    """The rank's example shard of a global design on a process mesh of
-    data extent > 1: ``(shard, max_row, k_parts)``, the shard a design of
-    n_loc rows owning its memory (slab and bucketed layouts keep their
-    K), ``max_row`` the global slabs' largest row index (a device scalar)
-    and ``k_parts`` each bucket's global per-feature live-slot maxima
-    (the K class every rank must agree on); both None for a dense
-    design. Raises the reference's guards on a mismatched slab data
-    dimension or an n the data extent does not divide."""
-    from repro_torch.core.distributed import example_rows, slab_dims
+@dataclass(eq=False)
+class SlabPiece:
+    """A rank's piece of a slab layout on a process mesh of several ranks
+    (:func:`shard_examples`): its example shard of the work positions
+    ``[lo, lo + width)`` it owns, as ``pieces``, the tile-aligned ranges
+    of the work buckets (each padded to M * tile) that fall there, in
+    work order, each ``(row_idx (w_i, 1, K_i) int32, values float32, work
+    offset)``; and the work axis' bookkeeping, whole: O(p) integers that
+    every rank's branches read (the K class, the path's masks)."""
+
+    pieces: tuple
+    n_loc: int
+    p: int                       # original features (the work axis maps onto them)
+    lo: int
+    p_work: int
+    feat_map: torch.Tensor       # (p_work,) original id per work position, sentinel p
+    k_arr: torch.Tensor          # (p_work,) max live slots over every example shard
+    k_max: int                   # the largest K class of the global buckets
+    max_row: torch.Tensor        # the global slabs' largest row index (a scalar)
+    tile: int                    # the work axis' tile (padding to M * tile)
+    layout: str                  # the global design's: "slab" or "bucketed"
+    front_packed: bool = True
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_loc, self.p)
+
+    @property
+    def k(self) -> int:
+        return max(int(r.shape[-1]) for r, _, _ in self.pieces)
+
+
+def shard_examples(inner, mesh, n: int, tile: int):
+    """The rank's (data, model) piece of a global design on a process mesh
+    of several ranks, cut from the global wherever it lives and owning its
+    memory, so the caller may free the global. Rank (d, r) keeps example
+    shard d (n / D rows) of the features it owns: the r-th contiguous 1 / R
+    of the mesh-padded feature (work) axis, which its M / R blocks solve,
+    so a full fit moves no design bytes between ranks.
+
+    * dense: a :class:`DenseDesign` of (n / D, p_pad / R), the features
+      zero-padded to p_pad, a multiple of M * ``tile``;
+    * slab and bucketed: a :class:`SlabPiece`; the work axis is the
+      buckets (one for a flat slab) each padded to M * ``tile``, the K
+      class bookkeeping counts every example shard.
+
+    Raises the reference's guards on a mismatched slab data dimension or
+    an n the data extent does not divide."""
+    from repro_torch.core.distributed import example_rows, rank_features, slab_dims
 
     ddim, d = mesh.shape["data"], mesh.data_rank
+    quantum = mesh.shape["model"] * tile
     if isinstance(inner, DenseDesign):
         X = torch.as_tensor(inner.X)
-        return DenseDesign(X[example_rows(n, mesh)].clone()), None, None
+        rows = example_rows(n, mesh)
+        p = int(X.shape[1])
+        own = rank_features(p + (-p) % quantum, mesh)
+        piece = X.new_zeros((rows.stop - rows.start, own.stop - own.start))
+        hi = min(own.stop, p)
+        if hi > own.start:
+            piece[:, :hi - own.start] = X[rows, own.start:hi]
+        return DenseDesign(piece)
     if isinstance(inner, SlabDesign):
         n_loc = slab_dims(inner.row_idx, inner.values, ddim, n)
-        buckets = ((inner.row_idx, inner.values, None),)
+        p = inner.shape[1]
+        buckets = ((inner.row_idx, inner.values,
+                    torch.arange(p, device=inner.row_idx.device)),)
     elif isinstance(inner, BucketedSlabDesign):
         n_loc = n // ddim
         buckets = inner.slabs.buckets
         for r_b, v_b, _ in buckets:
             slab_dims(r_b, v_b, ddim, n)
+        p = inner.slabs.p
     else:
         raise TypeError(f"no example shards for layout {inner.layout!r}")
-    local = tuple((r_b[:, d:d + 1].clone(), v_b[:, d:d + 1].clone(), f)
-                  for r_b, v_b, f in buckets)
+    padded = [int(r_b.shape[0]) + (-int(r_b.shape[0])) % quantum for r_b, _, _ in buckets]
+    p_work = sum(padded)
+    own = rank_features(p_work, mesh)
+    pieces, feat_parts, k_parts = [], [], []
+    off = 0
+    for (r_b, v_b, fid), p_pad in zip(buckets, padded):
+        p_b, k_b = int(r_b.shape[0]), int(r_b.shape[2])
+        fid = (fid.to(device=r_b.device, dtype=torch.int64) if torch.is_tensor(fid)
+               else torch.from_numpy(np.asarray(fid, np.int64)).to(r_b.device))
+        feat_parts.append(torch.cat([fid, fid.new_full((p_pad - p_b,), p)]))
+        # every example shard's live slots: one K class on all ranks
+        k_glob = (r_b < n_loc).sum(-1).amax(-1)
+        k_parts.append(torch.cat([k_glob, k_glob.new_zeros(p_pad - p_b)]))
+        a, b = max(own.start, off), min(own.stop, off + p_pad)
+        if a < b:
+            rows = torch.full((b - a, 1, k_b), n_loc, dtype=torch.int32, device=r_b.device)
+            vals = torch.zeros((b - a, 1, k_b), dtype=torch.float32, device=v_b.device)
+            live = min(b, off + p_b) - a
+            if live > 0:
+                rows[:live] = r_b[a - off:a - off + live, d:d + 1]
+                vals[:live] = v_b[a - off:a - off + live, d:d + 1]
+            pieces.append((rows, vals, a))
+        off += p_pad
     max_row = torch.stack([r_b.max() for r_b, _, _ in buckets if r_b.numel()]
                           or [torch.zeros((), dtype=torch.int32)]).max()
-    k_parts = [(r_b < n_loc).sum(-1).amax(-1) for r_b, _, _ in buckets]
-    if isinstance(inner, SlabDesign):
-        sub = SlabDesign(local[0][0], local[0][1], n_loc, front_packed=inner.front_packed)
-    else:
-        sub = BucketedSlabDesign(SlabBuckets(local, n_loc, inner.slabs.p), n_loc,
-                                 front_packed=inner.front_packed)
-    return sub, max_row, k_parts
+    return SlabPiece(pieces=tuple(pieces), n_loc=n_loc, p=p, lo=own.start, p_work=p_work,
+                     feat_map=torch.cat(feat_parts), k_arr=torch.cat(k_parts),
+                     k_max=max(int(r_b.shape[-1]) for r_b, _, _ in buckets), max_row=max_row,
+                     tile=tile, layout=inner.layout, front_packed=inner.front_packed)
 
 
 @dataclass(eq=False)
@@ -424,17 +496,23 @@ class ShardedDesign:
     of them on each rank. ``tile`` aligns the feature padding (to M *
     tile) with the solver's Gram tile; results do not depend on it.
 
-    On a process mesh of data extent > 1, ``inner`` is given global (on
-    every rank) and replaced by the rank's example shard of every
-    feature (:func:`shard_examples`); ``n`` keeps the global example
-    count. The example axis of :meth:`margins` and :meth:`correlation`
-    is then the rank's shard (n_loc rows), and correlation sums over the
-    shards, so its (p,) result is whole on every rank.
+    On a process mesh of several ranks (:attr:`split`), ``inner``
+    is given global (on every rank) and replaced by the rank's piece
+    (:func:`shard_examples`): its example shard of the features it owns,
+    as the reference's ``P(data, "model")`` / ``P("model", data, None)``
+    sharding places them. ``n`` and ``p`` keep the global counts. Every
+    pass runs the rank's piece and then one reduction: :meth:`margins`
+    (the rank's n_loc rows) sums over ``model``; :meth:`correlation`
+    and the screen sum over ``data`` and collect the owned entries over
+    ``model`` (``sharding.collect``), so their (p,) results are whole on
+    every rank; the screened path's restricted design is routed to its
+    owners block by block (:meth:`_gather_work`). Such a design is cut at
+    its ``tile``: a solve at another tile raises.
 
     Slab layouts (flat or bucketed) live as mesh-padded work buckets
     (:meth:`_mesh_state`): margins go through
     ``core.distributed.make_slab_margins`` (one ``slab_spmv`` launch per
-    bucket for all M blocks), correlation through
+    bucket for the rank's blocks), correlation through
     ``core.screening.make_sparse_corr``. The buckets' largest row index is
     read and checked once per residency (one counted host read), or by
     the path driver together with lambda_max.
@@ -450,13 +528,14 @@ class ShardedDesign:
     mesh: object                 # repro_torch.launch.mesh.DevMesh or ProcMesh
     tile: int = 128
     device_budget_bytes: Optional[int] = None
-    # the global example count; given only with an ``inner`` that is
-    # already the rank's example shard (the gathers' restricted designs)
+    # the global example and feature counts; given only with an ``inner``
+    # that is already the rank's piece (the gathers' restricted designs)
     n: Optional[int] = None
-    # the global slabs' largest row index (process mesh, data extent > 1)
-    max_row: Optional[torch.Tensor] = field(default=None, repr=False)
-    k_parts: Optional[list] = field(default=None, repr=False)
+    p: Optional[int] = None
     _states: dict = field(default_factory=dict, init=False, repr=False)
+    # whether ``inner`` is the rank's piece cut from a global design here
+    # (a restricted design's piece is not: it mirrors no residency metric)
+    _cut: bool = field(default=False, init=False, repr=False)
 
     def __post_init__(self):
         if isinstance(self.inner, ShardedDesign):
@@ -466,11 +545,13 @@ class ShardedDesign:
                 f"mesh axes {self.mesh.axis_names} lack the 'model' axis the "
                 f"feature blocks map onto -- build meshes with "
                 f"repro_torch.launch.mesh.make_dev_mesh")
+        if self.p is None:
+            self.p = int(self.inner.shape[1])
         if self.n is None:
             self.n = int(self.inner.shape[0])
-            if self.ddim > 1:
-                self.inner, self.max_row, self.k_parts = shard_examples(
-                    self.inner, self.mesh, self.n)
+            if self.split:
+                self.inner = shard_examples(self.inner, self.mesh, self.n, self.tile)
+                self._cut = True
 
     @property
     def layout(self) -> str:
@@ -478,7 +559,14 @@ class ShardedDesign:
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return (self.n, self.inner.shape[1])
+        return (self.n, self.p)
+
+    @property
+    def split(self) -> bool:
+        """Whether the design holds only its rank's piece: on a process
+        mesh of more than one rank (a ``DevMesh`` and a world of one hold
+        every feature of every example)."""
+        return self.mesh.ranks > 1
 
     @property
     def n_local(self) -> int:
@@ -503,16 +591,15 @@ class ShardedDesign:
         return self.mesh.shape["data"]
 
     def to(self, device) -> "ShardedDesign":
-        if self.device_budget_bytes is not None and self.layout != "dense":
+        if isinstance(self.inner, SlabPiece) or (
+                self.device_budget_bytes is not None and self.layout != "dense"):
             # the residency manager places (or streams) the slabs itself
             return self
         inner = self.inner.to(device)
         if inner is self.inner:
             return self
-        max_row = None if self.max_row is None else self.max_row.to(device)
         return ShardedDesign(inner, self.mesh, tile=self.tile,
-                             device_budget_bytes=self.device_budget_bytes, n=self.n,
-                             max_row=max_row, k_parts=self.k_parts)
+                             device_budget_bytes=self.device_budget_bytes, n=self.n, p=self.p)
 
     # -- mesh residency (slab layouts) ------------------------------------
 
@@ -527,6 +614,18 @@ class ShardedDesign:
             return self.inner.slabs
         raise TypeError(f"no slab form for layout {self.layout!r}")
 
+    def _piece(self, tile: int) -> SlabPiece:
+        """The rank's piece of a split slab design, which is cut at the
+        design's own tile."""
+        if not isinstance(self.inner, SlabPiece):
+            raise TypeError(f"no slab form for layout {self.layout!r}")
+        if tile != self.inner.tile:
+            raise ValueError(
+                f"this design holds its rank's piece of a work axis cut at "
+                f"tile={self.inner.tile}; a solve at tile={tile} needs the design built "
+                f"with tile={tile}")
+        return self.inner
+
     def _mesh_state(self, tile: Optional[int] = None) -> _MeshSlabState:
         from repro_torch.core.distributed import pad_features, slab_dims
 
@@ -538,13 +637,32 @@ class ShardedDesign:
         st = self._states.get(tile)
         if st is not None:
             return st
-        p = self.shape[1]
         cap_tile = self.mdim * tile
+        mesh_dev = self.mesh.device
+
+        def on_dev(t):
+            return t.to(mesh_dev, non_blocking=True)
+
+        if isinstance(self.inner, SlabPiece):
+            # the rank's pieces, already padded and cut; the bookkeeping whole
+            piece = self._piece(tile)
+            st = _MeshSlabState(
+                residency=BucketResidencyManager(piece.pieces, device=mesh_dev),
+                feat_map=on_dev(piece.feat_map), k_arr=on_dev(piece.k_arr),
+                k_max=piece.k_max, p_work=piece.p_work, n_loc=piece.n_loc,
+                cap_tile=cap_tile, max_row=on_dev(piece.max_row), lo=piece.lo)
+            if self._cut:
+                st.residency.register_metrics(name=f"residency.tile{st.cap_tile}")
+            self._states[tile] = st
+            return st
+        # the whole design of one rank: padded here, at any tile, and
+        # streamed from the host under a device budget
+        p = self.shape[1]
         slabs = self._as_buckets()
         n_loc = slabs.n_loc
         budget = self.device_budget_bytes
         padded, feat_parts, k_parts, max_rows = [], [], [], []
-        for i, (r_b, v_b, fid) in enumerate(slabs.buckets):
+        for r_b, v_b, fid in slabs.buckets:
             # the inner design holds one example shard (data dimension 1)
             if slab_dims(r_b, v_b, 1, self.n_local) != n_loc:
                 raise ValueError("bucket n_loc inconsistent with mesh/n")
@@ -561,18 +679,9 @@ class ShardedDesign:
             fid = (fid.to(device=dev, dtype=torch.int64) if torch.is_tensor(fid)
                    else torch.from_numpy(np.asarray(fid, np.int64)).to(dev, non_blocking=True))
             feat_parts.append(torch.cat([fid, fid.new_full((pad_b,), p)]))
-            if self.k_parts is None:
-                k_parts.append((r_b < n_loc).sum(-1).amax(-1))
-            else:
-                # every example shard's live slots: one K class on all ranks
-                k_glob = self.k_parts[i].to(dev)
-                k_parts.append(torch.cat([k_glob, k_glob.new_zeros(pad_b)]))
+            k_parts.append((r_b < n_loc).sum(-1).amax(-1))
             max_rows.append(r_b.max())
             padded.append((r_b, v_b, fid))
-        mesh_dev = self.mesh.device
-
-        def on_dev(t):
-            return t.to(mesh_dev, non_blocking=True)
 
         st = _MeshSlabState(
             residency=BucketResidencyManager(tuple(padded), device=mesh_dev,
@@ -583,8 +692,7 @@ class ShardedDesign:
             p_work=sum(int(b[0].shape[0]) for b in padded),
             n_loc=n_loc,
             cap_tile=cap_tile,
-            max_row=on_dev(torch.stack(max_rows).max() if self.max_row is None
-                           else self.max_row),
+            max_row=on_dev(torch.stack(max_rows).max()),
         )
         # mirror the manager's counters onto an active metrics registry (a
         # lazy callback; residency_stats() stays the source of truth)
@@ -610,7 +718,11 @@ class ShardedDesign:
 
     def slab_bucket_nbytes(self, tile: Optional[int] = None) -> Tuple[int, ...]:
         """Per-bucket padded device bytes at ``tile`` alignment, from the
-        shapes alone."""
+        shapes alone (a device budget is held against them before any
+        residency exists); of a piece, its own buckets."""
+        if isinstance(self.inner, SlabPiece):
+            return tuple(r.numel() * r.element_size() + v.numel() * v.element_size()
+                         for r, v, _ in self._piece(self.tile if tile is None else tile).pieces)
         cap_tile = self.mdim * (self.tile if tile is None else tile)
         out = []
         for r_b, v_b, _ in self._as_buckets().buckets:
@@ -620,44 +732,124 @@ class ShardedDesign:
         return tuple(out)
 
     def slab_nbytes(self, tile: Optional[int] = None) -> int:
-        """Total padded slab bytes (the sum of :meth:`slab_bucket_nbytes`);
-        a ``device_budget_bytes`` below this streams the buckets."""
+        """Total padded slab bytes on this rank (the sum of
+        :meth:`slab_bucket_nbytes`); a ``device_budget_bytes`` below this
+        streams the buckets."""
         return sum(self.slab_bucket_nbytes(tile))
 
     def residency_stats(self) -> dict:
         """Per-tile residency counters of every built mesh state."""
         return {t: st.residency.stats() for t, st in self._states.items()}
 
+    # -- the rank's piece of the feature axis ---------------------------------
+
+    def _route_dense(self, idx):
+        """The (n_loc, len(idx) / R) columns of this rank's block of a
+        split dense design's columns ``idx`` (original ids, sentinel >= p
+        reading zeros), each moved from its owner (``sharding.collect.
+        route``)."""
+        from repro_torch.sharding.collect import route
+
+        X = self.inner.X
+        width = X.shape[1]
+        lo = self.mesh.model_rank * width
+        w = idx.shape[0] // self.mesh.model_ranks
+
+        def part_for(j):
+            local = idx[j * w:(j + 1) * w] - lo
+            own = torch.logical_and(local >= 0, local < min(width, self.p - lo))
+            return take_fill(X, torch.where(own, local, width), 0.0, dim=1)
+
+        return route(part_for, self.mesh)
+
+    def _route_slab(self, st: _MeshSlabState, idx, k_cap: int, *, everyone: bool = False):
+        """The slabs at work positions ``idx`` (sentinel >= p_work reading
+        all-sentinel) at capacity ``k_cap``: this rank's block (of
+        len(idx) / R) or, with ``everyone``, all of them on every rank,
+        each feature moved from its owner. Rows cross as ``row - n_loc``
+        (0 for a sentinel slot and for a rank that does not hold the
+        feature) with the values' bit patterns in one int32 merge per
+        block (``sharding.collect``)."""
+        from repro_torch.sharding.collect import merge_exact, route
+
+        ranks = 1 if everyone else self.mesh.model_ranks
+        w = idx.shape[0] // ranks
+
+        def take(j):
+            return take_buckets_iter(st.iter_buckets(), st.n_loc, idx[j * w:(j + 1) * w],
+                                     k_cap, start=st.lo)
+
+        if self.mesh.model_ranks == 1:
+            return take(0)
+
+        def part_for(j):
+            rows, vals = take(j)
+            return torch.stack([rows - st.n_loc, vals.view(torch.int32)])
+
+        packed = (merge_exact(part_for(0), self.mesh) if everyone
+                  else route(part_for, self.mesh))
+        return packed[0] + st.n_loc, packed[1].view(torch.float32)
+
     # -- Design protocol ---------------------------------------------------
 
     def margins(self, beta):
+        """X @ beta on the rank's rows: the rank's piece, then one sum over
+        ``model``."""
         if self.layout == "dense":
-            return self.inner.margins(beta)
+            from repro_torch.core.distributed import rank_features
+
+            width = self.inner.shape[1] * self.mesh.model_ranks
+            beta_pad = torch.nn.functional.pad(beta, (0, width - beta.shape[0]))
+            return self.mesh.all_reduce(self.inner.X @ beta_pad[rank_features(width, self.mesh)],
+                                        "model")
         from repro_torch.core.distributed import make_slab_margins
 
         st = self._checked_state()
         beta_work = take_fill(beta.to(torch.float32), st.feat_map, 0.0)
         margins = make_slab_margins(self.mesh, st.n_loc)
-        m, off = None, 0
+        m, off = None, st.lo
         for r_b, v_b, _ in st.iter_buckets():
             p_b = r_b.shape[0]
             m_b = margins(r_b, v_b, beta_work[off:off + p_b])
             m = m_b if m is None else m + m_b
             off += p_b
-        return m
+        return self.mesh.all_reduce(m, "model")
 
     def correlation(self, v):
+        """X^T v (p,), whole on every rank: the rank's entries summed over
+        ``data``, then collected over ``model``."""
+        from repro_torch.sharding.collect import concat_replicated
+
         if self.layout == "dense":
-            return self.mesh.all_reduce(self.inner.correlation(v), "data")
+            g = self.mesh.all_reduce(self.inner.correlation(v), "data")
+            return concat_replicated(g, self.mesh)[:self.p]
         from repro_torch.core.screening import make_sparse_corr
 
         st = self._checked_state()
         corr = make_sparse_corr(self.mesh, st.n_loc, st.cap_tile // self.mdim)
-        g_work = torch.cat([corr(r_b, v_b, v) for r_b, v_b, _ in st.iter_buckets()])
-        return scatter_set(g_work, st.feat_map, self.shape[1])
+        g_own = torch.cat([corr(r_b, v_b, v) for r_b, v_b, _ in st.iter_buckets()])
+        return scatter_set(concat_replicated(g_own, self.mesh), st.feat_map, self.shape[1])
 
     def gram_tile(self, w, r, start: int, width: int):
-        G, c = self.inner.gram_tile(w, r, start, width)
+        """(G, c) of features [start, start + width), whole on every rank:
+        the tile's columns moved from their owners (on one rank, taken
+        from the design), summed over ``data``."""
+        if self.layout == "dense":
+            from repro_torch.sharding.collect import merge_exact
+
+            X = self.inner.X
+            lo = self.mesh.model_rank * X.shape[1]
+            a, b = max(start, lo), min(start + width, lo + X.shape[1])
+            part = X.new_zeros((X.shape[0], width))
+            if a < b:
+                part[:, a - start:b - start] = X[:, a - lo:b - lo]
+            G, c = DenseDesign(merge_exact(part, self.mesh)).gram_tile(w, r, 0, width)
+        else:
+            st = self._checked_state()
+            ar = torch.arange(st.p_work, device=st.feat_map.device)
+            idx = scatter_set(ar, st.feat_map, self.shape[1])[start:start + width]
+            rows, vals = self._route_slab(st, idx, st.k_max, everyone=True)
+            G, c = SlabDesign(rows, vals, self.n_local).gram_tile(w, r, 0, width)
         return self.mesh.all_reduce(G, "data"), self.mesh.all_reduce(c, "data")
 
     # -- the work axis (estimator-internal) ---------------------------------
@@ -667,38 +859,71 @@ class ShardedDesign:
     # conversion; these three are the estimator's bridge to it.
 
     def _screen_abs_work(self, y, m, tile: Optional[int] = None):
-        """|X^T v(m, y)| in work order (p_work,), per bucket.
+        """|X^T v(m, y)| in work order (p_work,), per bucket, whole on
+        every rank.
 
         ``tile`` (default: the design's own) must match the state the
         caller's masks live on."""
         from repro_torch.core.screening import make_sparse_screen
+        from repro_torch.sharding.collect import concat_replicated
 
         st = self._mesh_state(tile)
         screen = make_sparse_screen(self.mesh, st.n_loc, st.cap_tile // self.mdim)
-        return torch.cat([screen(r_b, v_b, y, m) for r_b, v_b, _ in st.iter_buckets()])
+        g_own = torch.cat([screen(r_b, v_b, y, m) for r_b, v_b, _ in st.iter_buckets()])
+        return concat_replicated(g_own, self.mesh)
 
     def _gather_work(self, beta_work, mask_work, cap: int, k_cap: int,
                      tile: Optional[int] = None):
         """Work-order working-set gather into a flat restricted design of
-        ``cap`` features at slab capacity ``k_cap``."""
+        ``cap`` features at slab capacity ``k_cap``. On a split design the
+        restricted design is split too: rank r holds the r-th contiguous
+        cap / R of it, moved from the features' owners one block at a
+        time."""
         st = self._mesh_state(tile)
+        tile = self.tile if tile is None else tile
         idx = pack_indices(mask_work, cap)
-        beta_sub = take_fill(beta_work, idx, 0.0)
-        rows_sub, vals_sub = take_buckets_iter(st.iter_buckets(), st.n_loc, idx, k_cap)
+        rows_sub, vals_sub = self._route_slab(st, idx, k_cap)
         front = getattr(self.inner, "front_packed", True)
-        sub = ShardedDesign(SlabDesign(rows_sub, vals_sub, self.n_local, front_packed=front),
-                            self.mesh, tile=self.tile if tile is None else tile, n=self.n)
-        return sub, beta_sub, idx
+        if self.split:
+            lo = self.mesh.model_rank * rows_sub.shape[0]
+            inner = SlabPiece(
+                pieces=((rows_sub, vals_sub, lo),), n_loc=st.n_loc, p=cap, lo=lo, p_work=cap,
+                feat_map=torch.arange(cap, device=idx.device),
+                k_arr=take_fill(st.k_arr, idx, 0).clamp_max(k_cap), k_max=k_cap,
+                max_row=st.max_row, tile=tile, layout="slab", front_packed=front)
+        else:
+            # one rank holds the whole working set: the reference's flat design
+            inner = SlabDesign(rows_sub, vals_sub, self.n_local, front_packed=front)
+        sub = ShardedDesign(inner, self.mesh, tile=tile, n=self.n)
+        return sub, take_fill(beta_work, idx, 0.0), idx
 
     def _work_to_original(self, beta_work, tile: Optional[int] = None):
         """Work-order coefficients -> original feature ids (the mesh
         padding dropped)."""
         return scatter_set(beta_work, self._mesh_state(tile).feat_map, self.shape[1])
 
+    def _owned_flat(self, tile: int):
+        """The work positions this rank holds (all of them off a split
+        design) as one flat (width, 1, k_max) slab pair: every rank's at
+        the same K class, so every rank takes the same densify branch; a
+        lone bucket already at k_max as it is, no copy."""
+        st = self._mesh_state(tile)
+        if st.residency.n_buckets == 1:
+            rows, vals = st.residency.get(0)
+            if int(rows.shape[-1]) == st.k_max:
+                return rows, vals
+        width = st.p_work // self.mesh.model_ranks
+        idx = torch.arange(st.lo, st.lo + width, device=st.feat_map.device)
+        return take_buckets_iter(st.iter_buckets(), st.n_loc, idx, st.k_max, start=st.lo)
+
     def gather(self, beta, mask, cap: int, *, k_cap: Optional[int] = None):
         if self.layout == "dense":
-            sub, beta_sub, idx = self.inner.gather(beta, mask, cap)
-            return ShardedDesign(sub, self.mesh, tile=self.tile, n=self.n), beta_sub, idx
+            idx = pack_indices(mask, cap)
+            size = cap + (-cap) % (self.mdim * self.tile)
+            idx_pad = torch.cat([idx, idx.new_full((size - cap,), self.p)])
+            X_sub = self._route_dense(idx_pad)
+            sub = ShardedDesign(DenseDesign(X_sub), self.mesh, tile=self.tile, n=self.n, p=cap)
+            return sub, take_fill(beta, idx, 0.0), idx
         st = self._checked_state()
         mask_work = take_fill(mask, st.feat_map, False)
         beta_work = take_fill(beta.to(torch.float32), st.feat_map, 0.0)
@@ -707,7 +932,7 @@ class ShardedDesign:
 
     def scatter(self, beta_sub, idx):
         if self.layout == "dense":
-            return self.inner.scatter(beta_sub, idx)
+            return scatter_columns(beta_sub, idx, self.p)
         st = self._mesh_state()
         return self._work_to_original(scatter_features(beta_sub, idx, st.p_work))
 

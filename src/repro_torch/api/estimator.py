@@ -7,8 +7,9 @@
   mesh (``mesh=``: paper Algorithm 4 with its M feature blocks as one
   batch on the device, or, on a process mesh, over the ranks of a
   ``torch.distributed`` world: each rank passes the global data, keeps
-  its example shard and runs its M / R blocks; beta is whole on every
-  rank, ``res.m`` the rank's rows);
+  its piece, its example shard of the features its M / R blocks solve,
+  and runs those blocks; beta is whole on every rank, ``res.m`` the
+  rank's rows);
 * ``path(design, y)`` -- the warm-started, screened regularization path
   (paper Algorithm 5): strong-rule working sets, KKT-certified, solved
   restricted at power-of-two capacities, with the working set carried
@@ -59,7 +60,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.api.design import ShardedDesign, as_design
+from repro_torch.api.design import ShardedDesign, SlabPiece, as_design
 from repro_torch.api.strategy import Strategy, resolve
 from repro_torch.api.types import PathPoint, PathResult, _jsonable
 from repro_torch.core import engine
@@ -69,7 +70,6 @@ from repro_torch.core.distributed import (
     _finish,
     check_rows,
     data_reducer,
-    dense_blocks,
     layout_slabs,
     make_distributed_iteration,
     make_distributed_iteration_sparse,
@@ -280,11 +280,11 @@ def _fit_local_dense(X, y, lam, opts: DGLMNETOptions, beta0,
 
 
 def _mesh_dense_state(X, y, beta, m, lam, mesh, opts: DGLMNETOptions):
-    """The engine's solve on ``mesh`` over the rank's example shard X
-    (n_loc, p), p a multiple of M * tile: its blocks' tiles laid out once
-    (:func:`~repro_torch.core.distributed.dense_blocks`, freed with the
-    solve); one fault consult per solve."""
-    Xt = dense_blocks(X, mesh, opts.tile)
+    """The engine's solve on ``mesh`` over the rank's piece X (n_loc, w):
+    its example shard of the features of its M / R blocks (all M on one
+    rank), w a multiple of M / R * tile; its blocks' tiles laid out once
+    (freed with the solve); one fault consult per solve."""
+    Xt = layout_blocks(X, mesh.local_blocks, opts.tile)
     solve = engine.make_solver(make_distributed_iteration(mesh, opts),
                                max_iters=opts.max_iters, rel_tol=opts.rel_tol,
                                snap_tol=opts.snap_tol, fault=arm_engine_fault(),
@@ -293,69 +293,76 @@ def _mesh_dense_state(X, y, beta, m, lam, mesh, opts: DGLMNETOptions):
 
 
 def _fit_mesh_dense(X, y, lam, mesh, opts: DGLMNETOptions, beta0,
-                    verbose: bool) -> DistributedFitResult:
-    """Dense solve on a mesh: X (the rank's example shard; y its rows)
-    with its features zero-padded to M * tile and split into the mesh's
-    M contiguous blocks, M / R of them on this rank."""
-    num_blocks = mesh.shape["model"]
-    p = X.shape[1]
-    pad = (-p) % (num_blocks * opts.tile)
+                    verbose: bool, *, p: Optional[int] = None) -> DistributedFitResult:
+    """Dense solve on a mesh over X, the rank's piece (n_loc, w) (y its
+    rows): on a split design its example shard of the features it owns,
+    the padded feature axis cut into R contiguous runs (``p`` the global
+    feature count); on one rank the whole shard (n_loc, p), zero-padded
+    here to M * tile. beta is whole, the M blocks contiguous, M / R of
+    them on this rank. With ``beta0`` None the starting margins are
+    zeros: no product, no collective."""
+    p = X.shape[1] if p is None else p
+    pad = (-X.shape[1]) % (mesh.local_blocks * opts.tile)
     if pad:
         X = torch.nn.functional.pad(X, (0, pad))
-        if beta0 is not None:
-            beta0 = torch.nn.functional.pad(beta0, (0, pad))
-    beta = (torch.zeros(X.shape[1], dtype=torch.float32, device=X.device)
-            if beta0 is None else beta0)
-    state = _mesh_dense_state(X, y, beta, X @ beta, lam, mesh, opts)
-    return _finish(state, p, pad, verbose, "dist")
+    width = X.shape[1] * mesh.model_ranks
+    if beta0 is None:
+        beta = torch.zeros(width, dtype=torch.float32, device=X.device)
+        m = torch.zeros_like(y)
+    else:
+        beta = torch.nn.functional.pad(beta0, (0, width - beta0.shape[0]))
+        m = mesh.all_reduce(X @ beta[rank_features(width, mesh)], "model")
+    state = _mesh_dense_state(X, y, beta, m, lam, mesh, opts)
+    return _finish(state, p, width - p, verbose, "dist")
 
 
 def _fit_mesh_slab(row_idx, values, y, lam, mesh, strat: Strategy, beta0,
                    verbose: bool, *, n: int, max_row=None) -> DistributedFitResult:
     """By-feature slab solve on a mesh -- the webspam-scale layout where a
-    dense X cannot exist. ``row_idx``/``values`` are the rank's example
-    shard (p, 1, K) and ``y`` its rows; ``n`` the global example count.
-    The slabs' largest row is read once and checked: ``max_row`` (the
-    global slabs', so every rank reads the same) or the shard's own. The
-    subproblem family is the strategy's per-solve densify decision
-    (``prefer_slab_gram`` or the explicit override): the slab kernels
-    (``slab_gram``, the tile cycle, ``slab_spmv``) on the rank's blocks
-    laid out once per fit, or one densify per solve feeding the dense
-    solver."""
+    dense X cannot exist. ``row_idx``/``values`` are the rank's piece
+    (w, 1, K): on a split design its example shard of the work positions
+    it owns (w a multiple of M / R * tile, beta0 whole); on one rank the
+    whole shard of p features, sentinel-padded here to M * tile. ``y`` is
+    the shard's rows, ``n`` the global example count. The slabs' largest
+    row is read once and checked: ``max_row`` (the global slabs', so
+    every rank reads the same) or the piece's own. The subproblem family
+    is the strategy's per-solve densify decision (``prefer_slab_gram`` or
+    the explicit override): the slab kernels (``slab_gram``, the tile
+    cycle, ``slab_spmv``) on the rank's blocks laid out once per fit, or
+    one densify per solve feeding the dense solver."""
     opts = strat.opts
-    num_blocks = mesh.shape["model"]
     n_loc = slab_dims(row_idx, values, 1, y.shape[0])
     if max_row is None and row_idx.numel():
         max_row = row_idx.max()
     check_rows(int(engine.host_read(max_row)) if max_row is not None else 0, n_loc, n,
                mesh.shape["data"])
-    p = row_idx.shape[0]
     # sentinel-row feature padding is safe: all-sentinel slabs contribute
     # nothing to any Gram tile, so their coordinates stay at 0
     row_idx, values, beta0, pad = pad_features(row_idx, values, beta0, n_loc,
-                                               num_blocks * opts.tile)
-    beta = (torch.zeros(row_idx.shape[0], dtype=torch.float32, device=y.device)
+                                               mesh.local_blocks * opts.tile)
+    width = row_idx.shape[0] * mesh.model_ranks
+    beta = (torch.zeros(width, dtype=torch.float32, device=y.device)
             if beta0 is None else beta0)
     if beta0 is None:
         m = torch.zeros_like(y)
     else:
-        m = make_slab_margins(mesh, n_loc)(row_idx, values, beta)
+        m = mesh.all_reduce(make_slab_margins(mesh, n_loc)(
+            row_idx, values, beta[rank_features(width, mesh)]), "model")
 
     if strat.use_densify(n_loc, row_idx.shape[2]):
         X = make_slab_densifier(mesh, n_loc)(row_idx, values)
         state = _mesh_dense_state(X, y, beta, m, lam, mesh, opts)
         del X
-        return _finish(state, p, pad, verbose, "dist-sparse-dense")
+        return _finish(state, width - pad, pad, verbose, "dist-sparse-dense")
 
-    feats = rank_features(row_idx.shape[0], mesh)
-    lay = layout_slabs(row_idx[feats, 0], values[feats, 0], mesh.local_blocks, opts.tile)
+    lay = layout_slabs(row_idx[:, 0], values[:, 0], mesh.local_blocks, opts.tile)
     solve = engine.make_solver(make_distributed_iteration_sparse(mesh, opts),
                                max_iters=opts.max_iters, rel_tol=opts.rel_tol,
                                snap_tol=opts.snap_tol, fault=arm_engine_fault(),
                                reduce=data_reducer(mesh))
     state = solve(lay, y, beta, m, lam)
     del lay
-    return _finish(state, p, pad, verbose, "dist-sparse")
+    return _finish(state, width - pad, pad, verbose, "dist-sparse")
 
 
 def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False):
@@ -365,30 +372,29 @@ def _solve(design, y, lam, strat: Strategy, *, beta0=None, verbose: bool = False
         X = design.X if design.layout == "dense" else design.densify()
         return _fit_local_dense(X, y, lam, strat.opts, beta0, verbose)
     inner = design.inner
+    tile = strat.opts.tile
     if design.layout == "dense":
         return _fit_mesh_dense(inner.X, y, lam, design.mesh, strat.opts,
-                               beta0, verbose)
-    if design.layout == "slab":
-        # under a device budget the slabs stay on the host until here
+                               beta0, verbose, p=design.p)
+    if design.layout == "slab" and not isinstance(inner, SlabPiece):
+        # a flat design on one rank goes to the solve as it is, with no
+        # padded copy cached on the design; under a device budget its
+        # slabs stay on the host until here
         rows, vals = put_slab(inner.row_idx, inner.values, y.device)
         return _fit_mesh_slab(rows, vals, y, lam, design.mesh, strat, beta0, verbose,
-                              n=design.n, max_row=design.max_row)
-    # bucketed on a mesh: flatten through the bucket gather at the largest
-    # K class, solve the flat slab problem, scatter back to the original
-    # order (one work axis throughout: strat.opts.tile)
-    tile = strat.opts.tile
+                              n=design.n)
+    # slabs on the work axis (a bucketed layout, or the rank's piece of a
+    # split design): the run of work positions this rank holds as one flat
+    # slab at the largest K class, solved, then scattered back to the
+    # original order (one work axis throughout: strat.opts.tile). A split
+    # design's piece is solved as it is: a full fit moves no slab bytes
+    # between ranks
     st = design._mesh_state(tile)
-    p = design.shape[1]
-    beta_full = (torch.zeros(p, dtype=torch.float32, device=y.device) if beta0 is None
-                 else beta0.to(torch.float32))
-    beta_work = take_fill(beta_full, st.feat_map, 0.0)
-    mask_work = torch.ones(st.p_work, dtype=torch.bool, device=y.device)
-    sub, beta_sub, idx = design._gather_work(beta_work, mask_work, st.p_work, st.k_max,
-                                             tile=tile)
-    res = _fit_mesh_slab(sub.inner.row_idx, sub.inner.values, y, lam, design.mesh,
-                         strat, beta_sub, verbose, n=design.n, max_row=design.max_row)
-    res.beta = design._work_to_original(scatter_features(res.beta, idx, st.p_work),
-                                        tile=tile)
+    rows, vals = design._owned_flat(tile)
+    beta_work = None if beta0 is None else take_fill(beta0.to(torch.float32), st.feat_map, 0.0)
+    res = _fit_mesh_slab(rows, vals, y, lam, design.mesh, strat, beta_work, verbose,
+                         n=design.n, max_row=st.max_row)
+    res.beta = design._work_to_original(res.beta, tile=tile)
     return res
 
 
@@ -458,6 +464,11 @@ class LogisticL1:
                         f"silence this", stacklevel=3)
                 else:
                     design.device_budget_bytes = budget
+            if design.split and design.tile != self.opts.tile:
+                raise ValueError(
+                    f"the design holds its rank's piece cut at tile={design.tile}, the "
+                    f"estimator solves at tile={self.opts.tile}: build the design with "
+                    f"tile={self.opts.tile}")
             if design.mesh.device.type != dev.type:
                 raise ValueError(
                     f"the mesh lives on {design.mesh.device}, the estimator "
@@ -493,15 +504,19 @@ class LogisticL1:
     # -- scoring -----------------------------------------------------------
 
     def decision_function(self, data, *, beta=None):
-        """X @ beta through the design (slab designs through
+        """X @ beta (n,) through the design (slab designs through
         ``kernels.slab_spmv``), with ``beta_`` (the last solve) unless
-        ``beta=`` is given; on a process mesh the rows of the rank's
-        example shard."""
+        ``beta=`` is given. On a process mesh every rank returns all n
+        rows: each rank's piece summed over ``model``, the example shards
+        then collected over ``data``, as the reference replicates them."""
         design = self._design(data)
         beta = self.beta_ if beta is None else beta
         if beta is None:
             raise ValueError("not fitted and no beta= given")
-        return design.margins(self._tensor(beta))
+        scores = design.margins(self._tensor(beta))
+        if isinstance(design, ShardedDesign):
+            scores = concat_replicated(scores, design.mesh, axis="data")
+        return scores
 
     def predict_proba(self, data, *, beta=None):
         """P(y = +1 | x) = sigmoid(X @ beta)."""

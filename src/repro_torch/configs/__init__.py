@@ -1,16 +1,28 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Configurations of the port (counterpart of ``repro.configs``):
 ``get_config("<id>")`` for the GLM workloads and for the LM architectures
-the port can run (``MODEL_CONFIGS``: tinyllama-1.1b so far)."""
+the port can run (``MODEL_CONFIGS``: tinyllama-1.1b so far), and the
+reference's config classes and id tables. The input shapes (``SHAPES``,
+``InputShape``, ``get_shape``) come with ``configs/shapes.py`` (ROADMAP
+queue 1 item 5.11)."""
+from repro_torch.configs.base import (ARCH_TYPES, AttentionConfig, EncDecConfig, FrontendStub,
+                                      GLMConfig, HybridConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 from repro_torch.configs.glm import GLM_CONFIGS
 from repro_torch.configs.tinyllama_1p1b import CONFIG as _TINYLLAMA
 
 MODEL_CONFIGS = {c.name: c for c in (_TINYLLAMA,)}
+ALL_CONFIGS = {**MODEL_CONFIGS, **GLM_CONFIGS}
+ARCH_IDS = tuple(MODEL_CONFIGS)
+GLM_IDS = tuple(GLM_CONFIGS)
+
+__all__ = ["ALL_CONFIGS", "ARCH_IDS", "ARCH_TYPES", "AttentionConfig", "EncDecConfig",
+           "FrontendStub", "GLMConfig", "GLM_CONFIGS", "GLM_IDS", "HybridConfig",
+           "MODEL_CONFIGS", "ModelConfig", "MoEConfig", "SSMConfig", "get_config"]
 
 
 def get_config(name: str):
     """Look up a registered config (LM architecture or GLM workload)."""
-    for table in (MODEL_CONFIGS, GLM_CONFIGS):
-        if name in table:
-            return table[name]
+    if name in ALL_CONFIGS:
+        return ALL_CONFIGS[name]
     raise KeyError(f"unknown arch {name!r}; have {sorted(MODEL_CONFIGS) + sorted(GLM_CONFIGS)}")

@@ -16,6 +16,7 @@ HYBRID = "hybrid"
 VLM = "vlm"
 AUDIO = "audio"
 GLM = "glm"
+ARCH_TYPES = (DENSE, MOE, SSM, HYBRID, VLM, AUDIO, GLM)
 
 
 @dataclass(frozen=True)

@@ -12,7 +12,9 @@ each rank holds in a solve:
 * ``beta`` (p,): whole, on every rank (the same bits everywhere);
 * ``m``, ``y``, ``w``, ``z`` (n_loc,): the rank's own example shard;
 * the design: its shard's rows of its blocks' features, laid out once
-  per fit (:func:`dense_blocks`, :func:`layout_slabs`).
+  per fit (:func:`layout_slabs`; ``api.design.shard_examples`` keeps only
+  that piece of a global design, so the solve cuts nothing; the
+  per-call steps below cut it from the global arrays).
 
 Entry points take the global arrays on every rank and keep the rank's
 shard, as the reference's ``device_put`` does. The reductions
@@ -38,8 +40,8 @@ Modules:
   ``slab_spmv`` residual update for the rank's blocks);
 * :func:`make_distributed_iteration` / ``_sparse`` -- the engine's
   iteration; :func:`make_dglmnet_step` / ``_sparse`` -- one outer step;
-* :func:`make_slab_margins` / :func:`make_slab_densifier` -- X @ beta
-  and the densify-once fallback, per example shard;
+* :func:`make_slab_margins` / :func:`make_slab_densifier` -- the rank's
+  part of X @ beta and the densify-once fallback, per example shard;
 * :func:`fit_distributed` / :func:`fit_distributed_sparse` -- the front
   door ``LogisticL1(opts, mesh=mesh)`` over a ``ShardedDesign``.
 
@@ -334,19 +336,21 @@ def make_dglmnet_step_sparse(mesh, opts: DGLMNETOptions):
 
 
 def make_slab_margins(mesh, n_loc: int):
-    """``margins(row_idx, values, beta) -> X @ beta`` on one example
-    shard: (p, 1, K) slabs of the shard's rows (p a multiple of M), the
-    slab product of each feature block's p/M features in one launch,
-    summed over the M blocks in a fixed order. Every feature is local,
-    so no collective."""
+    """``margins(row_idx, values, beta) -> X @ beta`` over this rank's
+    features on one example shard: (w, 1, K) slabs of the shard's rows (w
+    a multiple of the rank's M / R blocks; all M on one rank) and their
+    coefficients, the slab product of each block's features in one
+    launch, summed over the rank's blocks in a fixed order. This is the
+    rank's partial: the caller sums it over ``model`` (the reference's
+    ``psum``), once over all of its pieces."""
     from repro_torch.kernels import ops as kops
 
-    num_blocks = mesh.shape["model"]
+    num_blocks = mesh.local_blocks
 
     def slab_margins(row_idx, values, beta):
         p, _, k = row_idx.shape
         if p % num_blocks:
-            raise ValueError(f"p={p} must be a multiple of M={num_blocks}")
+            raise ValueError(f"p={p} must be a multiple of the rank's {num_blocks} blocks")
         rows = row_idx[:, 0].reshape(num_blocks, p // num_blocks, k)
         vals = values[:, 0].reshape(num_blocks, p // num_blocks, k)
         m_blocks = kops.slab_spmv(rows, vals, beta.reshape(num_blocks, -1), n_loc=n_loc)

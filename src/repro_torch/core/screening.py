@@ -148,7 +148,11 @@ def make_sparse_corr(mesh, n_loc: int, tile: int) -> Callable:
     shard's (p, 1, K) slabs (local rows, sentinel ``n_loc``; ``v`` the
     shard's (n_loc,)), summed over the mesh's example shards (one
     all_reduce over ``data``, as the reference's ``psum``), so the (p,)
-    result is whole on every rank. The reference runs it per tile under
+    result is whole on every rank of the model rank's ``data`` line. On a
+    design split over ``model`` the slabs are the rank's piece, and the
+    design collects the pieces' entries over ``model``
+    (``api.design.ShardedDesign.correlation``, ``sharding.collect``); the
+    screen and the KKT pass do the same. The reference runs it per tile under
     ``shard_map`` to bound memory; here the feature axis goes in chunks of
     :data:`CORR_CHUNK` (each feature's sum over K does not depend on the
     chunking). ``tile`` is checked as the reference checks it: the padded

@@ -295,16 +295,18 @@ def gather_features(row_idx, values, beta, mask, cap: int, *, sentinel: int,
     return rows_sub, vals_sub, beta_sub, idx
 
 
-def take_buckets_iter(buckets, n_loc: int, idx, k_cap: int):
+def take_buckets_iter(buckets, n_loc: int, idx, k_cap: int, *, start: int = 0):
     """:func:`take_features_buckets` over any iterable of ``(row_idx,
     values, ...)`` buckets: each bucket taken at the indices that fall in
     its range of the concatenated axis (the rest read as all-sentinel),
     trimmed or padded to ``k_cap``, and the pieces combined with
-    ``where``. Returns the (len(idx), DP, k_cap) slab pair."""
+    ``where``. The buckets cover the axis from position ``start`` on (a
+    rank's piece of a split design). Returns the (len(idx), DP, k_cap)
+    slab pair."""
     from repro_torch.core.screening import take_fill
 
     rows_sub = vals_sub = None
-    off = 0
+    off = start
     for bucket in buckets:
         r_b, v_b = bucket[0], bucket[1]
         p_b = r_b.shape[0]

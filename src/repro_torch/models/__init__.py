@@ -2,6 +2,10 @@
 """The LM zoo of the port (counterpart of ``repro.models``): the dense
 attention architectures (GQA, RoPE, RMSNorm, SwiGLU) for prefill and
 decode. MoE, SSM, MLA, hybrid and enc-dec layers are not ported yet."""
-from repro_torch.models.params import count_params_analytic, forward, init_cache, init_params, param_bytes
+from repro_torch.models.params import (count_params_analytic, forward, init_cache, init_params,
+                                       is_encdec, param_bytes)
+from repro_torch.models.transformer import (init_lm_cache, init_lm_params, lm_forward,
+                                            segments_of)
 
-__all__ = ["count_params_analytic", "forward", "init_cache", "init_params", "param_bytes"]
+__all__ = ["count_params_analytic", "forward", "init_cache", "init_lm_cache", "init_lm_params",
+           "init_params", "is_encdec", "lm_forward", "param_bytes", "segments_of"]

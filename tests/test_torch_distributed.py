@@ -6,8 +6,9 @@ against the JAX reference's ``shard_map`` mesh of fake CPU devices.
   devices (as ``tests/test_distributed.py`` does): dense and slab fits on
   its (2, 4) and (1, 4) meshes (``fit_distributed`` /
   ``fit_distributed_sparse``, sequential cycle, no Pallas kernel), one
-  outer step (``make_dglmnet_step`` / ``_sparse``) and a 6-point screened
-  slab path (``regularization_path_distributed``).
+  outer step (``make_dglmnet_step`` / ``_sparse``), a 6-point screened
+  slab path (``regularization_path_distributed``) and a 3-point screened
+  path of a dense X (``LogisticL1.path``).
 * The port runs the same numpy inputs as 8 spawned gloo ranks on a (2, 4)
   mesh (2 data x 4 model ranks, one feature block each) and 2 ranks on a
   (1, 4) mesh (two blocks each). Each rank is a subprocess that starts
@@ -19,6 +20,11 @@ against the JAX reference's ``shard_map`` mesh of fake CPU devices.
   ``tests/test_distributed.py:135-184``; one step within rtol 1e-3.
 * Every rank of a run must hold the same bits (beta, histories, path);
   a world of one rank must be bit-equal to ``make_dev_mesh(1, 4)``.
+* Each rank keeps only its piece of a design (its example shard of its
+  run of the padded feature axis): its bytes, the restricted gather's
+  blocks and merges, the Gram tile across ranks, ``decision_function``'s
+  n rows on every rank, and the path's reductions over ``model`` are
+  checked from the same spawn.
 """
 import json
 import os
@@ -32,7 +38,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import GLMConfig
-from repro_torch.data.byfeature import to_by_feature, to_slabs
+from repro_torch.data.byfeature import to_by_feature, to_slab_buckets, to_slabs
 from repro_torch.data.synthetic import make_glm_dataset
 
 torch.set_num_threads(2)
@@ -79,6 +85,7 @@ REFERENCE = """
 import sys
 import numpy as np
 import jax.numpy as jnp
+from repro.api import LogisticL1
 from repro.core import DGLMNETOptions, fit_distributed, regularization_path_distributed
 from repro.core.distributed import (fit_distributed_sparse, make_dglmnet_step,
                                     make_dglmnet_step_sparse)
@@ -113,6 +120,10 @@ pts = regularization_path_distributed((jnp.asarray(a["prows"]), jnp.asarray(a["p
 out.update(path_lams=np.asarray([pt.lam for pt in pts]), path_f=np.asarray([pt.f for pt in pts]),
            path_nnz=np.asarray([pt.nnz for pt in pts]),
            path_betas=np.stack([np.asarray(pt.beta) for pt in pts]))
+# the dense design's screened path on the same (2, 4) mesh
+pts = LogisticL1(DGLMNETOptions(num_blocks=4, **PATH), mesh=mesh).path(
+    jnp.asarray(a["pX"]), jnp.asarray(a["py"]), path_len=3)
+out.update(dpath_f=np.asarray(pts.f), dpath_betas=np.asarray(pts.betas))
 np.savez(f"{work}/reference.npz", **out)
 print("OK reference")
 """
@@ -123,7 +134,8 @@ from datetime import timedelta
 import numpy as np
 import torch
 torch.set_num_threads(1)
-from repro_torch.api import LogisticL1
+from repro_torch.api import DenseDesign, LogisticL1, ShardedDesign, SlabDesign, as_design
+from repro_torch.api import estimator
 from repro_torch.core import engine
 from repro_torch.core.dglmnet import DGLMNETOptions
 from repro_torch.core.distributed import (fit_distributed, fit_distributed_sparse,
@@ -154,6 +166,12 @@ if data == 2:
         "slab_rows": lambda: fit_distributed_sparse(torch.full((16, 2, 4), 30, dtype=torch.int32),
                                                     torch.zeros(16, 2, 4), torch.ones(18), 1.0,
                                                     mesh),
+        # a design holds its piece cut at its own tile
+        "tile_dense": lambda: LogisticL1(DGLMNETOptions(tile=8, max_iters=2), mesh=mesh,
+                                         device="cpu").fit(
+            ShardedDesign(DenseDesign(a["dX"]), mesh, tile=16), a["dy"], 1.0),
+        "tile_slab": lambda: ShardedDesign(SlabDesign(a["srows2"], a["svals2"], len(a["sy"])),
+                                           mesh, tile=16)._mesh_state(8),
     }
     for name, fn in cases.items():
         try:
@@ -194,14 +212,72 @@ if data == 2:
         a["srows2"], a["svals2"], a["sy"], sb,
         (a["sX"] @ sb)[mesh.data_rank * 1024:(mesh.data_rank + 1) * 1024], float(a["slam"]))
     out.update(sstep_beta_new=b.numpy(), sstep_f=f.numpy(), sstep_alpha=alpha.numpy())
+    # count the path's restricted solves (their iterations) and screens
+    solves, screens = [], [0]
+    real_solve, real_screen = estimator._solve, ShardedDesign._screen_abs_work
+
+    def counted_solve(*args, **kw):
+        res = real_solve(*args, **kw)
+        solves.append(res.n_iters)
+        return res
+
+    def counted_screen(self, *args, **kw):
+        screens[0] += 1
+        return real_screen(self, *args, **kw)
+
+    estimator._solve, ShardedDesign._screen_abs_work = counted_solve, counted_screen
     mesh.reset_stats()
     pts = regularization_path_distributed((a["prows"], a["pvals"]), a["py"], mesh,
                                           path_len=PATH_LEN, opts=DGLMNETOptions(**PATH))
+    stats = mesh.stats()
+    estimator._solve, ShardedDesign._screen_abs_work = real_solve, real_screen
     out.update(path_lams=np.asarray(pts.lambdas), path_f=np.asarray(pts.f),
                path_nnz=np.asarray([pt.nnz for pt in pts]),
                path_active=np.asarray([pt.screen["active"] for pt in pts]),
                path_status=np.asarray(list(pts.statuses)), path_betas=pts.betas.numpy())
-    msgs["path"] = dict(stats=mesh.stats())
+    msgs["path"] = dict(stats=stats, solves=solves, screens=screens[0], points=len(pts))
+    # the dense design's screened path (its restricted designs routed by columns)
+    pts = LogisticL1(DGLMNETOptions(**PATH), mesh=mesh, device="cpu").path(
+        a["pX"], a["py"], path_len=3)
+    out.update(dpath_f=np.asarray(pts.f), dpath_betas=pts.betas.numpy())
+# the split: each rank's piece of each layout, and what crosses to build
+# a restricted design
+n_s = len(a["sy"])
+pieces = {"flat": ShardedDesign(SlabDesign(a[f"srows{dp}"], a[f"svals{dp}"], n_s), mesh, tile=16),
+          "bucketed": as_design(to_slab_buckets(to_by_feature(a["sX"]), dp), n=n_s, mesh=mesh,
+                                tile=16)}
+split = {"coords": [mesh.data_rank, mesh.model_rank]}
+for tag, des in pieces.items():
+    st = des._mesh_state(16)
+    split[tag] = dict(nbytes=des.slab_nbytes(), resident=des.residency_stats()[16]["total_bytes"],
+                      lo=st.lo, p_work=st.p_work)
+dense = ShardedDesign(DenseDesign(a["dX"]), mesh, tile=16)
+split["dense_shape"] = list(dense.inner.X.shape)
+flat = pieces["flat"]
+st = flat._mesh_state(16)
+mask = torch.zeros(st.p_work, dtype=torch.bool)
+mask[:96:3] = True
+mesh.reset_stats()
+sub, _, _ = flat._gather_work(torch.zeros(st.p_work), mask, 64, st.k_max, tile=16)
+(rows_g, vals_g, _), = sub.inner.pieces
+split["gather"] = dict(stats=mesh.stats(), lo=sub.inner.lo, k=st.k_max)
+out.update(gather_rows=rows_g.numpy(), gather_vals=vals_g.numpy())
+# the Gram tile of features [16, 48) (across model ranks), on every rank
+n_d = len(a["dy"])
+wv, rv = 0.25 + (torch.arange(n_d) % 7) / 10.0, torch.sin(torch.arange(n_d, dtype=torch.float32))
+rows = slice(mesh.data_rank * (n_d // data), (mesh.data_rank + 1) * (n_d // data))
+G, c = dense.gram_tile(wv[rows], rv[rows], 16, 32)
+out.update(gram_dense_G=G.numpy(), gram_dense_c=c.numpy())
+sdes = ShardedDesign(SlabDesign.from_dense(a["dX"], data), mesh, tile=16)
+G, c = sdes.gram_tile(wv[rows], rv[rows], 16, 32)
+out.update(gram_slab_G=G.numpy(), gram_slab_c=c.numpy())
+# decision_function: every rank scores all 64 rows
+est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
+beta = torch.from_numpy(out["dense_beta"])
+out.update(score_dense=est.decision_function(a["dX"][:64], beta=beta).numpy(),
+           score_slab=est.decision_function(SlabDesign.from_dense(a["dX"][:64], data),
+                                            beta=beta).numpy())
+msgs["split"] = split
 np.savez(f"{work}/w{world}_r{rank}.npz", **out)
 with open(f"{work}/w{world}_r{rank}.json", "w") as fh:
     json.dump(msgs, fh)
@@ -381,6 +457,15 @@ def test_guards_raise_the_reference_messages(runs):
             assert msgs[name] is not None and text in msgs[name], (name, msgs[name])
 
 
+def test_split_design_is_cut_at_its_tile(runs):
+    """A design split over ranks holds its run of the feature axis padded
+    at its own tile: a solve or a residency at another tile raises (before
+    any collective) instead of solving blocks the rank does not hold."""
+    for _, msgs in runs[8]:
+        for name in ("tile_dense", "tile_slab"):
+            assert msgs[name] is not None and "cut at tile=16" in msgs[name], (name, msgs[name])
+
+
 def test_collectives_per_iteration(runs):
     """The reductions a dense fit makes, per rank: over ``data`` f(beta0)
     and the snap-back once, then per iteration the fused NLL, one (G, c)
@@ -392,6 +477,152 @@ def test_collectives_per_iteration(runs):
             info = msgs["dense"]
             calls = {ax: c for ax, (c, _) in info["stats"].items()}
             assert calls == axis_calls(info["iters"]), (world, info)
+
+
+def _rank_of(msgs):
+    return tuple(msgs["split"]["coords"])
+
+
+def _padded_buckets(dp):
+    """(padded width, K) of each work bucket of the slab problem's
+    layouts, each bucket padded to M * tile = 64, as the tests build them."""
+    X = torch.from_numpy(_inputs()["sX"])
+    flat = to_slabs(to_by_feature(X), dp)[0]
+    buckets = to_slab_buckets(to_by_feature(X), dp).buckets
+    return {"flat": [(128, int(flat.shape[2]))],
+            "bucketed": [(int(r.shape[0]) + (-int(r.shape[0])) % 64, int(r.shape[2]))
+                         for r, _, _ in buckets]}
+
+
+@pytest.mark.parametrize("world", [8, 2], ids=["2x4", "1x4"])
+def test_each_rank_holds_its_piece(runs, world):
+    """Rank (d, r) keeps its example shard of the r-th contiguous 1 / R of
+    the padded work axis: a flat slab's bytes are the global padded bytes
+    / (D R) on every rank; a bucketed layout's are the bytes of the bucket
+    ranges in its run (the runs of a data row add up to the global / D);
+    the dense shard is (n / D, p_pad / R)."""
+    data = 2 if world == 8 else 1
+    ranks = world // data
+    widths = _padded_buckets(data)
+    n = len(runs["inputs"]["dy"])
+    row_sums = {}
+    for _, msgs in runs[world]:
+        d, r = _rank_of(msgs)
+        split = msgs["split"]
+        for tag, buckets in widths.items():
+            p_work = sum(w for w, _ in buckets)
+            lo, hi = r * p_work // ranks, (r + 1) * p_work // ranks
+            want, off = 0, 0
+            for w, k in buckets:
+                want += max(0, min(hi, off + w) - max(lo, off)) * k * 8
+                off += w
+            info = split[tag]
+            assert (info["lo"], info["p_work"]) == (lo, p_work), (tag, info)
+            assert info["nbytes"] == info["resident"] == want, (tag, d, r, info, want)
+            row_sums[(tag, d)] = row_sums.get((tag, d), 0) + want
+        glob = 128 * data * widths["flat"][0][1] * 8
+        assert split["flat"]["nbytes"] == glob // (data * ranks)
+        assert split["dense_shape"] == [n // data, 128 // ranks]
+    for (tag, _), total in row_sums.items():
+        assert total == sum(w * k for w, k in widths[tag]) * 8, tag
+
+
+@pytest.mark.parametrize("world", [8, 2], ids=["2x4", "1x4"])
+def test_restricted_gather_moves_one_block_at_a_time(runs, world):
+    """The screened path's restricted design is split like the design:
+    rank r holds the r-th cap / R of the working set, each slab moved from
+    its owner with its row sentinel intact, in R merges over ``model`` of
+    one block each (rows and values in one int32 reduction)."""
+    inp = runs["inputs"]
+    data = 2 if world == 8 else 1
+    ranks = world // data
+    rows_g, vals_g = inp[f"srows{data}"], inp[f"svals{data}"]
+    n_loc = len(inp["sy"]) // data
+    pad = 128 - rows_g.shape[0]
+    rows_p = np.concatenate([rows_g, np.full((pad, *rows_g.shape[1:]), n_loc, np.int32)])
+    vals_p = np.concatenate([vals_g, np.zeros((pad, *vals_g.shape[1:]), np.float32)])
+    idx = np.full(64, 128)
+    idx[:32] = np.arange(0, 96, 3)
+    w = 64 // ranks
+    for out, msgs in runs[world]:
+        d, r = _rank_of(msgs)
+        info = msgs["split"]["gather"]
+        block = idx[r * w:(r + 1) * w]
+        live = block < 128
+        want_rows = np.where(live[:, None], rows_p[np.minimum(block, 127), d], n_loc)
+        want_vals = np.where(live[:, None], vals_p[np.minimum(block, 127), d], 0.0)
+        np.testing.assert_array_equal(out["gather_rows"][:, 0], want_rows)
+        np.testing.assert_array_equal(out["gather_vals"][:, 0], want_vals)
+        assert info["lo"] == r * w
+        calls, nbytes = info["stats"]["model"]
+        assert calls == ranks and nbytes == ranks * 2 * w * info["k"] * 4, info
+
+
+@pytest.mark.parametrize("world", [8, 2], ids=["2x4", "1x4"])
+@pytest.mark.parametrize("layout", ["dense", "slab"])
+def test_gram_tile_across_model_ranks(runs, world, layout):
+    """``gram_tile`` of features [16, 48), which span model ranks, is the
+    whole tile's (G, c) on every rank."""
+    X = runs["inputs"]["dX"].astype(np.float64)
+    n = X.shape[0]
+    wv, rv = 0.25 + (np.arange(n) % 7) / 10.0, np.sin(np.arange(n, dtype=np.float32))
+    Xf = X[:, 16:48]
+    G, c = Xf.T @ (wv[:, None] * Xf), (wv[:, None] * Xf).T @ rv
+    for out, _ in runs[world]:
+        np.testing.assert_allclose(out[f"gram_{layout}_G"], G, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(out[f"gram_{layout}_c"], c, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("world", [8, 2], ids=["2x4", "1x4"])
+@pytest.mark.parametrize("layout", ["dense", "slab"])
+def test_decision_function_returns_every_row(runs, world, layout):
+    """On a process mesh ``decision_function`` returns all n rows on every
+    rank, as the reference's: each rank's piece summed over ``model``,
+    the shards collected over ``data``; the same bits on every rank."""
+    X = runs["inputs"]["dX"][:64].astype(np.float64)
+    ranks = runs[world]
+    first = ranks[0][0][f"score_{layout}"]
+    assert first.shape == (64,)
+    np.testing.assert_allclose(first, X @ ranks[0][0]["dense_beta"], rtol=1e-5, atol=1e-5)
+    for out, _ in ranks[1:]:
+        np.testing.assert_array_equal(out[f"score_{layout}"], first)
+
+
+def test_path_collectives_per_lambda(runs):
+    """The screened path's reductions over ``model`` on (2, 4), per rank:
+    one collection per screen (lambda_max, each point's strong rule, each
+    KKT pass), and per restricted solve R = 4 merges of its gather, the
+    warm start's margins and 2 an iteration (dm, dbeta)."""
+    for _, msgs in runs[8]:
+        info = msgs["path"]
+        want = info["screens"] + sum(4 + 1 + 2 * it for it in info["solves"])
+        assert info["stats"]["model"][0] == want, info
+        assert info["screens"] >= 1 + 2 * info["points"], info
+
+
+def test_dense_path_on_split_design(runs):
+    """The dense design's screened path on (2, 4), each rank holding its
+    (n / 2, p_pad / 4) piece, against the reference's ``LogisticL1.path``
+    of the same dense X on its (2, 4) mesh and against the port's
+    ``make_dev_mesh(1, 4)`` path (the fit tolerance); the ranks hold the
+    same bits."""
+    from repro_torch.api import LogisticL1
+    from repro_torch.core.dglmnet import DGLMNETOptions
+    from repro_torch.launch.mesh import make_dev_mesh
+
+    inp = runs["inputs"]
+    dev = LogisticL1(DGLMNETOptions(**PATH), mesh=make_dev_mesh(1, 4, device="cpu"),
+                     device="cpu").path(inp["pX"], inp["py"], path_len=3)
+    out = runs[8][0][0]
+    for want_f, want_betas in ((runs["ref"]["dpath_f"], runs["ref"]["dpath_betas"]),
+                               (dev.f, dev.betas.numpy())):
+        assert len(out["dpath_f"]) == len(want_f) == 3
+        for i, f in enumerate(want_f):
+            assert abs(out["dpath_f"][i] - f) / abs(f) < 1e-4, (i, out["dpath_f"][i], f)
+        np.testing.assert_allclose(out["dpath_betas"], want_betas, rtol=1e-2, atol=1e-3)
+    for other, _ in runs[8][1:]:
+        np.testing.assert_array_equal(other["dpath_betas"], out["dpath_betas"])
+        np.testing.assert_array_equal(other["dpath_f"], out["dpath_f"])
 
 
 def _single_rank_world(tmp_path):

@@ -22,6 +22,8 @@ the same numpy inputs.
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it
 against the plain version); here its wrapper must refuse CPU tensors.
 """
+from importlib import import_module
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,7 +32,8 @@ import torch
 from repro.kernels.ops import flash_attention as j_flash_attention
 from repro.kernels.ref import flash_attention_ref as j_flash_attention_ref
 from repro.models.attention import sdpa as j_sdpa
-from repro_torch.kernels import flash_attention, ops, ref
+from repro_torch.kernels import ops, ref
+flash_attention = import_module("repro_torch.kernels.flash_attention")
 from repro_torch.models import attention as tattn
 
 torch.set_num_threads(2)

@@ -22,6 +22,7 @@ import subprocess
 import sys
 import threading
 import weakref
+from importlib import import_module
 
 import jax.numpy as jnp
 import numpy as np
@@ -190,7 +191,7 @@ def test_plain_slab_path_spmv_matches_reference(lead):
 def test_path_kernel_refuses_cpu_tensors():
     """The path mode's wrapper launches its kernel or raises: CPU tensors
     go to the plain version only through ``ops``."""
-    from repro_torch.kernels import slab_spmv
+    slab_spmv = import_module("repro_torch.kernels.slab_spmv")
 
     rows = torch.tensor([[0, 2], [1, 5]], dtype=torch.int32)
     vals = torch.ones(2, 2)

@@ -22,6 +22,7 @@ algorithm is written out in numpy and held against the plain path and
 the earlier merge join's sum order.
 """
 import io
+from importlib import import_module
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +36,9 @@ from repro.kernels import ref as jref
 from repro.kernels.sparse_slab import slab_spmv_pallas
 from repro_torch.api import SlabDesign, as_design
 from repro_torch.data import byfeature as tbf
-from repro_torch.kernels import ops, ref, slab_gram, slab_spmv
+from repro_torch.kernels import ops, ref
+slab_gram = import_module("repro_torch.kernels.slab_gram")
+slab_spmv = import_module("repro_torch.kernels.slab_spmv")
 from repro_torch.launch.mesh import make_dev_mesh
 
 torch.set_num_threads(2)

@@ -28,6 +28,7 @@ The kernels themselves run only on the card (``chip_smoke.py``).
 """
 import ctypes
 import inspect
+from importlib import import_module
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,7 +41,9 @@ from repro.kernels.ref import logistic_stats_ref as j_logistic_stats_ref
 from repro.kernels.sparse_slab import slab_spmv_pallas
 from repro_torch.core import subproblem as tsub
 from repro_torch.core.distributed import layout_slabs
-from repro_torch.kernels import blocked_cd, logistic_stats, ops, ref, slab_spmv
+from repro_torch.kernels import blocked_cd, ops, ref
+logistic_stats = import_module("repro_torch.kernels.logistic_stats")
+slab_spmv = import_module("repro_torch.kernels.slab_spmv")
 from repro_torch.kernels.slab_spmv import SlabOrder, slab_order
 from test_torch_cd_tile import kernel_modes, kind_tile
 from test_torch_slab import KINDS, slab_case
