@@ -37,7 +37,7 @@ from repro_torch.core.screening import (gather_columns, pack_indices, scatter_co
 from repro_torch.data.byfeature import (ByFeature, SlabBuckets, gather_features,
                                         gather_features_buckets, scatter_features,
                                         take_buckets_iter, take_features_buckets, to_slabs)
-from repro_torch.data.residency import BucketResidencyManager
+from repro_torch.data.residency import BucketResidencyManager, put_slab, stream_floor
 
 
 def _on(t, device) -> bool:
@@ -161,9 +161,9 @@ class SlabDesign:
         if (_on(self.row_idx, device) and self.row_idx.dtype == torch.int32
                 and self.values.dtype == torch.float32):
             return self
-        return SlabDesign(self.row_idx.to(device=device, dtype=torch.int32),
-                          self.values.to(device=device, dtype=torch.float32),
-                          self.n, front_packed=self.front_packed)
+        rows, vals = put_slab(self.row_idx, self.values, device)
+        return SlabDesign(rows.to(torch.int32), vals.to(torch.float32), self.n,
+                          front_packed=self.front_packed)
 
     def _shard(self, v, s: int):
         return v[s * self.n_loc:(s + 1) * self.n_loc]
@@ -391,7 +391,9 @@ class SlabPiece:
     of the work buckets (each padded to M * tile) that fall there, in
     work order, each ``(row_idx (w_i, 1, K_i) int32, values float32, work
     offset)``; and the work axis' bookkeeping, whole: O(p) integers that
-    every rank's branches read (the K class, the path's masks)."""
+    every rank's branches read (the K class, the path's masks), with
+    ``spans``, each global padded bucket's ``(offset, width, K)`` on the
+    work axis, from which every rank knows every rank's piece shapes."""
 
     pieces: tuple
     n_loc: int
@@ -405,6 +407,17 @@ class SlabPiece:
     tile: int                    # the work axis' tile (padding to M * tile)
     layout: str                  # the global design's: "slab" or "bucketed"
     front_packed: bool = True
+    spans: tuple = ()            # (offset, padded width, K) of every global bucket
+
+    def piece_nbytes(self, model_rank: int, model_ranks: int) -> Tuple[int, ...]:
+        """The device bytes of the pieces that model rank ``model_rank`` of
+        ``model_ranks`` holds, from the shapes alone (the same on every
+        rank of its model line): its run of the work axis cut at the
+        buckets' edges, int32 rows and float32 values."""
+        width = self.p_work // model_ranks
+        lo, hi = model_rank * width, (model_rank + 1) * width
+        return tuple((min(hi, off + w) - max(lo, off)) * k * 8
+                     for off, w, k in self.spans if min(hi, off + w) > max(lo, off))
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -433,7 +446,7 @@ def shard_examples(inner, mesh, n: int, tile: int):
     an n the data extent does not divide."""
     from repro_torch.core.distributed import example_rows, rank_features, slab_dims
 
-    ddim, d = mesh.shape["data"], mesh.data_rank
+    ddim, d = mesh.examples, mesh.example_rank
     quantum = mesh.shape["model"] * tile
     if isinstance(inner, DenseDesign):
         X = torch.as_tensor(inner.X)
@@ -461,7 +474,7 @@ def shard_examples(inner, mesh, n: int, tile: int):
     padded = [int(r_b.shape[0]) + (-int(r_b.shape[0])) % quantum for r_b, _, _ in buckets]
     p_work = sum(padded)
     own = rank_features(p_work, mesh)
-    pieces, feat_parts, k_parts = [], [], []
+    pieces, feat_parts, k_parts, spans = [], [], [], []
     off = 0
     for (r_b, v_b, fid), p_pad in zip(buckets, padded):
         p_b, k_b = int(r_b.shape[0]), int(r_b.shape[2])
@@ -480,13 +493,15 @@ def shard_examples(inner, mesh, n: int, tile: int):
                 rows[:live] = r_b[a - off:a - off + live, d:d + 1]
                 vals[:live] = v_b[a - off:a - off + live, d:d + 1]
             pieces.append((rows, vals, a))
+        spans.append((off, p_pad, k_b))
         off += p_pad
     max_row = torch.stack([r_b.max() for r_b, _, _ in buckets if r_b.numel()]
                           or [torch.zeros((), dtype=torch.int32)]).max()
     return SlabPiece(pieces=tuple(pieces), n_loc=n_loc, p=p, lo=own.start, p_work=p_work,
                      feat_map=torch.cat(feat_parts), k_arr=torch.cat(k_parts),
                      k_max=max(int(r_b.shape[-1]) for r_b, _, _ in buckets), max_row=max_row,
-                     tile=tile, layout=inner.layout, front_packed=inner.front_packed)
+                     tile=tile, layout=inner.layout, front_packed=inner.front_packed,
+                     spans=tuple(spans))
 
 
 @dataclass(eq=False)
@@ -522,7 +537,11 @@ class ShardedDesign:
     streams the buckets from pinned host memory through every pass
     instead of keeping them all resident (bit-identical results). With a
     budget the slabs stay on the host (:meth:`to` leaves them there); set
-    it before the first residency build (:meth:`_mesh_state`)."""
+    it before the first residency build (:meth:`_mesh_state`). On a split
+    design the budget is each rank's, held against its own pieces (which
+    then move to pinned host memory); every rank checks it against every
+    model rank's floor, which it knows from the shapes, so a budget too
+    small for one rank raises on all of them before any collective."""
 
     inner: object
     mesh: object                 # repro_torch.launch.mesh.DevMesh or ProcMesh
@@ -588,7 +607,7 @@ class ShardedDesign:
 
     @property
     def ddim(self) -> int:
-        return self.mesh.shape["data"]
+        return self.mesh.examples
 
     def to(self, device) -> "ShardedDesign":
         if isinstance(self.inner, SlabPiece) or (
@@ -646,8 +665,18 @@ class ShardedDesign:
         if isinstance(self.inner, SlabPiece):
             # the rank's pieces, already padded and cut; the bookkeeping whole
             piece = self._piece(tile)
+            budget = self.device_budget_bytes
+            if budget is not None and self._cut:
+                self._check_budget(piece, budget)
+            residency = BucketResidencyManager(piece.pieces, device=mesh_dev,
+                                               budget_bytes=budget)
+            if residency.streamed:
+                # the manager streams from its pinned host copies: the
+                # piece keeps those, so that no device copy outlives the cut
+                piece.pieces = tuple((*host, off) for host, (_, _, off)
+                                     in zip(residency.host_buckets, piece.pieces))
             st = _MeshSlabState(
-                residency=BucketResidencyManager(piece.pieces, device=mesh_dev),
+                residency=residency,
                 feat_map=on_dev(piece.feat_map), k_arr=on_dev(piece.k_arr),
                 k_max=piece.k_max, p_work=piece.p_work, n_loc=piece.n_loc,
                 cap_tile=cap_tile, max_row=on_dev(piece.max_row), lo=piece.lo)
@@ -699,6 +728,24 @@ class ShardedDesign:
         st.residency.register_metrics(name=f"residency.tile{st.cap_tile}")
         self._states[tile] = st
         return st
+
+    def _check_budget(self, piece: SlabPiece, budget: int) -> None:
+        """Raise on every rank when ``budget`` cannot double-buffer some
+        model rank's pieces (each rank computes every floor from the
+        shapes, so all of them decide alike)."""
+        floors = [stream_floor(piece.piece_nbytes(r, self.mesh.model_ranks))
+                  for r in range(self.mesh.model_ranks)]
+        totals = [sum(piece.piece_nbytes(r, self.mesh.model_ranks))
+                  for r in range(self.mesh.model_ranks)]
+        # a rank streams below its total, and then needs its floor
+        short = [r for r in range(self.mesh.model_ranks)
+                 if budget < totals[r] and budget < floors[r]]
+        if short:
+            raise ValueError(
+                f"device_budget_bytes={budget} per rank cannot double-buffer the pieces of "
+                f"model rank(s) {short}: their largest adjacent bucket pair is "
+                f"{max(floors[r] for r in short)} bytes -- raise the budget to >= "
+                f"{max(floors)}, or drop it to run resident")
 
     def _check_rows(self, st: _MeshSlabState, max_row: int) -> None:
         """Check the buckets' largest row index (read by the caller)."""
@@ -821,7 +868,7 @@ class ShardedDesign:
         from repro_torch.sharding.collect import concat_replicated
 
         if self.layout == "dense":
-            g = self.mesh.all_reduce(self.inner.correlation(v), "data")
+            g = self.mesh.all_reduce(self.inner.correlation(v), self.mesh.example_axes)
             return concat_replicated(g, self.mesh)[:self.p]
         from repro_torch.core.screening import make_sparse_corr
 
@@ -850,7 +897,8 @@ class ShardedDesign:
             idx = scatter_set(ar, st.feat_map, self.shape[1])[start:start + width]
             rows, vals = self._route_slab(st, idx, st.k_max, everyone=True)
             G, c = SlabDesign(rows, vals, self.n_local).gram_tile(w, r, 0, width)
-        return self.mesh.all_reduce(G, "data"), self.mesh.all_reduce(c, "data")
+        axes = self.mesh.example_axes
+        return self.mesh.all_reduce(G, axes), self.mesh.all_reduce(c, axes)
 
     # -- the work axis (estimator-internal) ---------------------------------
     #
@@ -962,7 +1010,7 @@ def as_design(data, *, n: Optional[int] = None, mesh=None,
     elif isinstance(data, ByFeature):
         if n is not None and data.n != n:
             raise ValueError(f"ByFeature has n={data.n} but len(y)={n}")
-        d = SlabDesign.from_by_feature(data, 1 if mesh is None else mesh.shape["data"])
+        d = SlabDesign.from_by_feature(data, 1 if mesh is None else mesh.examples)
     elif isinstance(data, SlabBuckets):
         dp = int(data.buckets[0][0].shape[1]) if data.buckets else 1
         d = BucketedSlabDesign(data, n=data.n_loc * dp, front_packed=True)

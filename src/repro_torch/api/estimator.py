@@ -32,7 +32,9 @@ are budgeted, the budget's and the admitted count, per point the final
 count and (nnz, f). :func:`make_design_eval` reads each point's scores
 once. A checkpointed path (``checkpoint_every=``) adds one read per
 checkpoint: the warm-start chain and the points not yet on the host,
-packed into one tensor (``engine.host_array``).
+packed into one tensor (``engine.host_array``); on a design split
+between ranks, ``resume_from=`` adds one more, the ranks' agreement on
+the point to resume from.
 
 Trace spans (``repro_torch.obs``): under an active tracer the path emits
 the reference's tree, ``path > lambda_grid / lambda_point >
@@ -42,13 +44,20 @@ anyway, so work queued on the card between two reads is timed in the
 span that owns the later read; tracing adds no read, and with no tracer
 every span is the shared null span.
 
-On a process mesh, streamed residency (a device budget), checkpointed
-or resumed paths and fault injection raise "not ported yet".
-
 Faults (``repro_torch.resilience``): every solve consults
 ``arm_engine_fault()`` once (:func:`_dense_state`, which also serves the
 mesh and densify-once solves, and the slab solver), and the path driver
 calls ``maybe_kill`` after each point's checkpoint.
+
+On a process mesh every rank runs the same driver over the same reduced
+values, so every rank consults the fault plan at the same points, in the
+same order: a poisoned iteration trips every rank's solve through the
+reduced NLL, and an injected kill raises on every rank after the same
+point, with no rank left in a collective. A checkpointed path on a
+design split between ranks keeps per-rank slots (the margins are the
+rank's shard; ``resilience.progress``), and a resume agrees on the
+point to restart from with one reduction and one read
+(:func:`_mesh_resume`).
 """
 from __future__ import annotations
 
@@ -92,9 +101,9 @@ from repro_torch.core.subproblem import layout_blocks
 from repro_torch.data.byfeature import k_class, scatter_features
 from repro_torch.data.residency import put_slab
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.launch.mesh import is_process_mesh
 from repro_torch.obs import trace as obs_trace
-from repro_torch.resilience import PathProgress, active_plan, arm_engine_fault, maybe_kill
+from repro_torch.resilience import (PathProgress, arm_engine_fault, foreign_layout,
+                                    maybe_kill, rank_directory)
 from repro_torch.sharding.collect import concat_replicated
 
 
@@ -210,7 +219,8 @@ def _host_state(arrays, dev):
 
 
 def _save_progress(progress: PathProgress, pt_idx: int, lams, lam_prev, beta, m,
-                   carry_mask, points, host_betas, p: int, p_cap: int) -> int:
+                   carry_mask, points, host_betas, p: int, p_cap: int,
+                   mesh_meta: Optional[dict] = None) -> int:
     """Checkpoint the path driver's warm-start chain (``beta`` and ``m`` on
     the driver's axes, ``carry_mask``, ``lam_prev``) and the emitted points
     as one rotated :class:`PathProgress` slot, in the reference's format
@@ -250,8 +260,55 @@ def _save_progress(progress: PathProgress, pt_idx: int, lams, lam_prev, beta, m,
             for pt in points
         ],
     }
+    if mesh_meta is not None:
+        meta["mesh"] = mesh_meta
     directory = progress.save(pt_idx, tree, meta)
     return os.path.getsize(os.path.join(directory, "arrays.npz"))
+
+
+def _mesh_meta(mesh) -> dict:
+    """What a per-rank progress slot records of its mesh."""
+    return {"pods": int(getattr(mesh, "pods", 1)), "data": int(mesh.shape["data"]),
+            "model": int(mesh.shape["model"]), "ranks": int(mesh.ranks)}
+
+
+def _progress_matches(meta: dict, lams, p: int, p_cap: int, mesh_meta: dict) -> bool:
+    return (meta.get("kind") == "PathProgress" and meta.get("lams") == lams
+            and meta.get("p") == p and meta.get("p_cap") == p_cap
+            and meta.get("mesh") == mesh_meta)
+
+
+def _mesh_resume(directory: str, mesh, lams, p: int, p_cap: int):
+    """This rank's :class:`PathProgress` under ``directory`` and the state
+    every rank resumes from, agreed by one reduction over the mesh: the
+    newest point index whose slot every rank can load (None: start from
+    the top). Each rank's row of a (ranks, 1 + L) table says whether its
+    slots mismatch the path (another grid, ``p``, capacity or mesh, or a
+    directory laid out for another world) and which indices it holds; the
+    table crosses to the host in one counted read, so every rank raises,
+    or resumes, alike."""
+    progress = PathProgress(rank_directory(directory, mesh.rank))
+    found = progress.load_all()
+    want = _mesh_meta(mesh)
+    n_pts = len(lams)
+    on = mesh.device if mesh.backend == "nccl" else "cpu"
+    row = torch.zeros(mesh.ranks, 1 + n_pts, dtype=torch.int64)
+    row[mesh.rank, 0] = int(foreign_layout(directory, mesh.ranks) or not all(
+        _progress_matches(meta, lams, p, p_cap, want) for _, meta in found.values()))
+    for idx in found:
+        if 0 <= idx < n_pts:
+            row[mesh.rank, 1 + idx] = 1
+    table = engine.host_array(mesh.all_reduce(row.to(on), mesh.axis_names))
+    if table[:, 0].any():
+        bad = [r for r in range(mesh.ranks) if table[r, 0]]
+        raise ValueError(
+            f"progress in {directory} was written for a different path (grid/shape/mesh "
+            f"mismatch on rank(s) {bad}) -- point it at a fresh directory or rerun with "
+            f"the original arguments and mesh")
+    held = [i for i in range(n_pts) if table[:, 1 + i].all()]
+    if not held:
+        return progress, None
+    return progress, (held[-1], *found[held[-1]])
 
 
 def _fit_local_dense(X, y, lam, opts: DGLMNETOptions, beta0,
@@ -335,7 +392,7 @@ def _fit_mesh_slab(row_idx, values, y, lam, mesh, strat: Strategy, beta0,
     if max_row is None and row_idx.numel():
         max_row = row_idx.max()
     check_rows(int(engine.host_read(max_row)) if max_row is not None else 0, n_loc, n,
-               mesh.shape["data"])
+               mesh.examples)
     # sentinel-row feature padding is safe: all-sentinel slabs contribute
     # nothing to any Gram tile, so their coordinates stay at 0
     row_idx, values, beta0, pad = pad_features(row_idx, values, beta0, n_loc,
@@ -404,19 +461,6 @@ def _rows(design, y):
     return design.local_rows(y) if isinstance(design, ShardedDesign) else y
 
 
-def _check_process_mesh(budget) -> None:
-    """Raise for what the process mesh does not run yet (no silent
-    one-rank path): streamed residency and fault injection."""
-    if budget is not None:
-        raise NotImplementedError(
-            "streamed residency (device_budget_bytes) on a process mesh is not ported "
-            "yet (ROADMAP queue 1 item 4); keep the slabs resident")
-    if active_plan() is not None:
-        raise NotImplementedError(
-            "fault injection on a process mesh is not ported yet (ROADMAP queue 1 "
-            "item 4); inject faults on one device")
-
-
 @dataclass
 class LogisticL1:
     """L1-regularized logistic regression via d-GLMNET on one device.
@@ -446,8 +490,6 @@ class LogisticL1:
         budget = self.opts.device_budget_bytes
         design = as_design(data, n=n, mesh=self.mesh, tile=self.opts.tile,
                            device_budget_bytes=budget)
-        if isinstance(design, ShardedDesign) and is_process_mesh(design.mesh):
-            _check_process_mesh(design.device_budget_bytes if budget is None else budget)
         if isinstance(design, ShardedDesign):
             if self.mesh is not None and design.mesh is not self.mesh:
                 raise ValueError(
@@ -515,7 +557,7 @@ class LogisticL1:
             raise ValueError("not fitted and no beta= given")
         scores = design.margins(self._tensor(beta))
         if isinstance(design, ShardedDesign):
-            scores = concat_replicated(scores, design.mesh, axis="data")
+            scores = concat_replicated(scores, design.mesh, axis=design.mesh.example_axes)
         return scores
 
     def predict_proba(self, data, *, beta=None):
@@ -601,8 +643,10 @@ class LogisticL1:
         there is resumed bit-identically from the last certified point;
         ``checkpoint_every=k`` (requires ``resume_from``) checkpoints every
         k-th point into it (atomic publish, CRC-checked payload). A
-        directory written for another grid, ``p`` or work-axis width
-        raises.
+        directory written for another grid, ``p``, work-axis width or
+        mesh raises. On a design split between ranks each rank keeps its
+        own slots (``resilience.progress``), and the ranks resume from
+        the newest point that every one of them saved.
 
         Under an active ``repro_torch.obs`` tracer the path emits the
         ``path > lambda_grid / lambda_point > {screen_round,
@@ -638,10 +682,9 @@ class LogisticL1:
         if n_d != int(y.shape[0]):
             raise ValueError(f"X rows {n_d} != len(y) {int(y.shape[0])}")
         sharded = isinstance(design, ShardedDesign)
-        if sharded and is_process_mesh(design.mesh) and (checkpoint_every or resume_from):
-            raise NotImplementedError(
-                "checkpointed and resumed paths on a process mesh are not ported yet "
-                "(ROADMAP queue 1 item 4); run them on one device")
+        # a design split between ranks checkpoints per rank (its m is the
+        # rank's example shard); a world of one keeps one device's layout
+        per_rank = sharded and design.split
         # on a process mesh the example axis is the rank's shard from here on
         y = _rows(design, y)
         n = int(y.shape[0])
@@ -723,8 +766,17 @@ class LogisticL1:
         points: List[PathPoint] = []
         host_betas: List[Optional[np.ndarray]] = []   # the points' host copies
         start = 0
-        progress = PathProgress(resume_from) if resume_from else None
-        state = progress.load_latest() if progress is not None else None
+        progress, state, mesh_meta = None, None, None
+        if resume_from and per_rank:
+            mesh_meta = _mesh_meta(design.mesh)
+            progress, state = _mesh_resume(resume_from, design.mesh, lams, p, int(p_cap))
+        elif resume_from:
+            if foreign_layout(resume_from, 1):
+                raise ValueError(
+                    f"progress in {resume_from} was written for a different path (per-rank "
+                    f"slots of a process mesh) -- resume it on its mesh")
+            progress = PathProgress(resume_from)
+            state = progress.load_latest()
         if state is not None:
             idx, arrays, meta = state
             if meta.get("kind") != "PathProgress":
@@ -820,7 +872,7 @@ class LogisticL1:
                     if (checkpoint_every is not None
                             and (pt_idx + 1 - start) % checkpoint_every == 0):
                         _save_progress(progress, pt_idx, lams, lam_prev, beta, m, carry_mask,
-                                       points, host_betas, p, int(p_cap))
+                                       points, host_betas, p, int(p_cap), mesh_meta)
                 pt_sp.set(nnz=nnz, f=f, status=pt_status)
                 # the fault hook: a simulated process death between points, after
                 # the checkpoint landed (as a real mid-path kill would find it)
@@ -854,7 +906,7 @@ def make_design_eval(test_data, y_test, *, mesh=None, tile: int = 128,
     def fn(beta):
         scores = design.margins(torch.as_tensor(beta, dtype=torch.float32, device=dev))
         if isinstance(design, ShardedDesign):
-            scores = concat_replicated(scores, design.mesh, axis="data")
+            scores = concat_replicated(scores, design.mesh, axis=design.mesh.example_axes)
         return metrics_from_scores(np.asarray(engine.host_read(scores), np.float32), y_host)
 
     return fn

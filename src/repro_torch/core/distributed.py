@@ -21,7 +21,8 @@ shard, as the reference's ``device_put`` does. The reductions
 (``mesh.all_reduce``, skipped on an axis of one rank, so a one-rank
 ``ProcMesh`` computes bit for bit what a ``DevMesh`` computes):
 
-* over ``data``: each tile step's Gram block and correlation, packed in
+* over ``data`` (the example axes, ``("pod", "data")`` on a pod mesh,
+  in one collective): each tile step's Gram block and correlation, packed in
   one reduction (exact row-global statistics, as the reference's
   ``psum``), ``grad_dot``, and the engine's NLL partials (f(beta0), the
   fused NLL, each batch of line-search trials, the snap-back);
@@ -65,33 +66,38 @@ from repro_torch.sharding.collect import concat_replicated
 
 
 def data_reducer(mesh):
-    """The sum of NLL partials over the mesh's example shards (None on a
-    data axis of one rank): the engine's ``reduce``."""
-    if mesh.axis_ranks("data") == 1:
+    """The sum of NLL partials over the mesh's example shards (None when
+    its example axes hold one rank): the engine's ``reduce``. On a pod
+    mesh the example axes are ``("pod", "data")``, reduced together in
+    one collective."""
+    axes = mesh.example_axes
+    if mesh.axis_ranks(axes) == 1:
         return None
-    return lambda t: mesh.all_reduce(t, "data")
+    return lambda t: mesh.all_reduce(t, axes)
 
 
 def _gc_reducer(mesh):
     """A tile's (G, c) summed over the example shards in one reduction."""
-    if mesh.axis_ranks("data") == 1:
+    axes = mesh.example_axes
+    if mesh.axis_ranks(axes) == 1:
         return None
 
     def reduce(G, c):
-        buf = mesh.all_reduce(torch.cat([G.reshape(-1), c.reshape(-1)]), "data")
+        buf = mesh.all_reduce(torch.cat([G.reshape(-1), c.reshape(-1)]), axes)
         return buf[:G.numel()].view(G.shape), buf[G.numel():].view(c.shape)
 
     return reduce
 
 
 def example_rows(n: int, mesh) -> slice:
-    """This rank's rows of an n-example axis (all of them on a data axis
-    of one rank)."""
-    ddim = mesh.shape["data"]
+    """This rank's rows of an n-example axis (all of them when the example
+    axes hold one rank): shard ``mesh.example_rank`` of ``mesh.examples``
+    (the pod and data extents together)."""
+    ddim = mesh.examples
     if n % ddim:
         raise ValueError(f"data extent {ddim} must divide n={n} (trim or pad upstream)")
     n_loc = n // ddim
-    return slice(mesh.data_rank * n_loc, (mesh.data_rank + 1) * n_loc)
+    return slice(mesh.example_rank * n_loc, (mesh.example_rank + 1) * n_loc)
 
 
 def rank_features(p: int, mesh) -> slice:
@@ -141,7 +147,7 @@ def check_slab_shapes(row_idx, values, mesh, n: int) -> int:
     example count. Returns n_loc (local examples per data shard). Reads
     the slabs' largest row index once (counted by ``engine.host_read``);
     on a process mesh every rank reads the same global slabs."""
-    ddim = mesh.shape["data"]
+    ddim = mesh.examples
     n_loc = slab_dims(row_idx, values, ddim, n)
     # local row indices beyond the sentinel would be silently dropped by
     # the products downstream -- catch a slab/y example-count mismatch
@@ -323,8 +329,8 @@ def make_dglmnet_step_sparse(mesh, opts: DGLMNETOptions):
     quantum = mesh.shape["model"] * opts.tile
 
     def step(row_idx, values, y, beta, m, lam):
-        n_loc = slab_dims(row_idx, values, mesh.shape["data"], y.shape[0])
-        d = mesh.data_rank
+        n_loc = slab_dims(row_idx, values, mesh.examples, y.shape[0])
+        d = mesh.example_rank
         rows, vals, beta_p, pad = pad_features(row_idx[:, d], values[:, d], beta, n_loc,
                                                quantum)
         feats = rank_features(rows.shape[0], mesh)

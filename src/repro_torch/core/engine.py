@@ -273,6 +273,7 @@ def make_solver(iteration_fn, *, max_iters: int, rel_tol: float,
                                       reduce=reduce)
             s, flags = _body(s, dbeta, dm, res, it, max_iters=max_iters,
                              rel_tol=rel_tol)
+            # allow[torch-nonfinite-guard]: the done flag and the status code, integers the device derives from its own isfinite checks of the objective
             done, status = host_read(flags)
             s = s._replace(status=status,
                            it=it if status == STATUS_OK else it - 1)

@@ -168,7 +168,7 @@ def make_sparse_corr(mesh, n_loc: int, tile: int) -> Callable:
         rows, vals = row_idx[:, 0], values[:, 0]
         g = torch.cat([slab_corr(rows[s:s + CORR_CHUNK], vals[s:s + CORR_CHUNK], v)
                        for s in range(0, p, CORR_CHUNK)])
-        return mesh.all_reduce(g, "data")
+        return mesh.all_reduce(g, mesh.example_axes)
 
     return corr
 

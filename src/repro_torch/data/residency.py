@@ -86,6 +86,13 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def stream_floor(bucket_bytes) -> int:
+    """The least budget that double-buffers buckets of ``bucket_bytes``
+    (in bucket order): the largest adjacent pair, or the one bucket."""
+    pairs = [a + b for a, b in zip(bucket_bytes, bucket_bytes[1:])]
+    return max(pairs) if pairs else (bucket_bytes[0] if bucket_bytes else 0)
+
+
 class BucketResidencyManager:
     """Budgeted LRU residency over padded slab work buckets.
 
@@ -106,10 +113,7 @@ class BucketResidencyManager:
         self.bucket_bytes: Tuple[int, ...] = tuple(
             _nbytes(r) + _nbytes(v) for r, v, _ in buckets)
         self.total_bytes = sum(self.bucket_bytes)
-        pairs = [self.bucket_bytes[i] + self.bucket_bytes[i + 1]
-                 for i in range(self.n_buckets - 1)]
-        self.min_budget_bytes = max(pairs) if pairs else (
-            self.bucket_bytes[0] if self.n_buckets else 0)
+        self.min_budget_bytes = stream_floor(self.bucket_bytes)
         self.budget_bytes = None if budget_bytes is None else int(budget_bytes)
         self.streamed = (self.budget_bytes is not None
                          and self.budget_bytes < self.total_bytes)
@@ -145,6 +149,12 @@ class BucketResidencyManager:
             self._host = None
             for i, (r, v, _) in enumerate(buckets):
                 self._admit(i, self._put(i, r, v))
+
+    @property
+    def host_buckets(self) -> Tuple[tuple, ...]:
+        """The streamed buckets' ``(row_idx, values)`` host copies (pinned
+        on a card); empty when resident."""
+        return self._host or ()
 
     @staticmethod
     def _pin(t):

@@ -4,6 +4,8 @@ injection, the counterpart of ``repro/launch/chaos_glm.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.chaos_glm --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.chaos_glm --smoke --mesh 1x4
+    PYTHONPATH=src python -m repro_torch.launch.chaos_glm --smoke --mesh 2x4 \
+        --backend gloo --device cpu --spawn 8
     PYTHONPATH=src python -m repro_torch.launch.chaos_glm --scenario kill-resume
 
 Each scenario arms a deterministic :class:`repro_torch.resilience.FaultPlan`
@@ -35,10 +37,23 @@ and also asserts that each scenario's injected faults reached the
 summary (``PATH.trace.json`` / ``PATH.events.jsonl`` /
 ``PATH.summary.json``). Runs on the card (``--device cuda``, the
 default, raising without one) unless ``--device cpu`` is given.
+
+With ``--backend`` (``launch.world``: under torchrun, or ``--spawn N``
+ranks started from one command) ``--mesh DxM`` / ``PxDxM`` spans the
+ranks of a ``torch.distributed`` world, as the reference's drills run on
+its (2, 4) mesh: every rank draws the same data (trimmed to a multiple of
+the example shards), arms the same plan and must reach the same outcome;
+rank 0 prints. Kill-resume keeps per-rank progress slots. Lost-bucket
+runs its transient window (every rank's puts fail twice and are retried;
+the path bit-identical to the resident one); its fatal window does not
+apply to a process mesh, since a put that fails for good fails on one
+rank, whose peers would wait in their next collective until the group's
+deadline.
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import tempfile
 from dataclasses import replace
 
@@ -51,10 +66,12 @@ from repro_torch.configs.base import GLMConfig
 from repro_torch.core import engine
 from repro_torch.core.dglmnet import DGLMNETOptions
 from repro_torch.data.byfeature import to_by_feature, to_slab_buckets
+from repro_torch.data.residency import stream_floor
 from repro_torch.data.synthetic import make_glm_dataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_dev_mesh
-from repro_torch.launch.serve_glm import parse_mesh
+from repro_torch.launch.mesh import is_process_mesh, make_dev_mesh
+from repro_torch.launch.serve_glm import say, trim_rows
+from repro_torch.launch.world import add_world_args, mesh_from_args, spawn_world
 from repro_torch.obs import observe
 from repro_torch.resilience import (EngineFault, FaultPlan, InjectedKill, PathProgress,
                                     RetriesExhausted, corrupt_checkpoint, inject_faults)
@@ -75,11 +92,11 @@ EXPECT = {
 }
 
 
-def _dataset(args, dev):
+def _dataset(args, dev, mesh):
     cfg = GLMConfig(name="chaos-glm", num_examples=args.n, num_features=args.p,
                     density=0.1)
     ds = make_glm_dataset(cfg, np.random.default_rng(0), device=dev)
-    return ds.X_train, ds.y_train
+    return trim_rows(mesh, ds.X_train, ds.y_train)
 
 
 def _estimator(mesh, dev, opts=None):
@@ -96,7 +113,7 @@ def same_path(a: PathResult, b: PathResult) -> bool:
 
 def scenario_nan_inject(args, mesh, dev) -> None:
     """NaN at iteration k trips the typed status; the next fit is healthy."""
-    X, y = _dataset(args, dev)
+    X, y = _dataset(args, dev, mesh)
     est = _estimator(mesh, dev)
     lam = 0.05
     base = est.fit(X, y, lam)
@@ -114,13 +131,13 @@ def scenario_nan_inject(args, mesh, dev) -> None:
 
     again = est.fit(X, y, lam)
     assert again.ok and torch.equal(again.beta, base.beta)
-    print(f"# nan-inject: status={res.status_name} after iter {res.n_iters}, beta "
-          f"finite, healthy solve bit-identical")
+    say(f"# nan-inject: status={res.status_name} after iter {res.n_iters}, beta "
+        f"finite, healthy solve bit-identical")
 
 
 def scenario_kill_resume(args, mesh, dev) -> None:
     """Mid-path kill + resume reproduces the path bit for bit."""
-    X, y = _dataset(args, dev)
+    X, y = _dataset(args, dev, mesh)
     est = _estimator(mesh, dev)
     kw = dict(path_len=args.path_len, screen=True)
     full = est.path(X, y, **kw)
@@ -135,13 +152,13 @@ def scenario_kill_resume(args, mesh, dev) -> None:
         assert killed, "kill_after_points never fired"
         resumed = est.path(X, y, checkpoint_every=1, resume_from=d, **kw)
     assert same_path(resumed, full), "the resumed path differs from the uninterrupted one"
-    print(f"# kill-resume: killed after 2/{len(full)} points, resume bit-identical "
-          f"across all {len(full)} points")
+    say(f"# kill-resume: killed after 2/{len(full)} points, resume bit-identical "
+        f"across all {len(full)} points")
 
 
 def scenario_corrupt(args, mesh, dev) -> None:
     """Corrupted checkpoints surface typed errors; progress rolls back."""
-    X, y = _dataset(args, dev)
+    X, y = _dataset(args, dev, mesh)
     path = _estimator(mesh, dev).path(X, y, path_len=args.path_len)
 
     for mode in ("bitflip", "truncate", "drop-meta"):
@@ -165,21 +182,22 @@ def scenario_corrupt(args, mesh, dev) -> None:
         idx, arrays, meta = prog.load_latest()
         assert idx == 0, idx                # rolled back to the last good slot
         assert np.array_equal(arrays["beta"], np.arange(4, dtype=np.float32))
-    print("# corrupt: bitflip/truncate/drop-meta all detected; progress rolled back to "
-          "the last good slot")
+    say("# corrupt: bitflip/truncate/drop-meta all detected; progress rolled back to "
+        "the last good slot")
 
 
 def scenario_overload(args, mesh, dev) -> None:
     """The bounded serve loop under latency, overload and poisoned swaps."""
-    X, y = _dataset(args, dev)
+    X, y = _dataset(args, dev, mesh)
     path = _estimator(mesh, dev).path(X, y, path_len=args.path_len)
 
     with inject_faults(FaultPlan(fail_swaps=1, serve_latency_s=0.005)):
         store = PathStore(path, mesh=mesh, device=dev)   # survives the injected failure
         scorer = PathScorer(store)
         t = [0.0]
-        batcher = RequestBatcher(store.snapshot.p, max_batch=32, pad_p_to=store.pad_p_to,
-                                 max_pending=8, default_ttl_s=1.0, clock=lambda: t[0])
+        batcher = RequestBatcher(store.snapshot.p, max_batch=32, dp=store.dp,
+                                 pad_p_to=store.pad_p_to, max_pending=8, default_ttl_s=1.0,
+                                 clock=lambda: t[0])
         rng = np.random.default_rng(0)
         rejected = 0
         for _ in range(12):                  # 8 admitted, 4 rejected
@@ -223,8 +241,8 @@ def scenario_overload(args, mesh, dev) -> None:
     assert stats["rejected_invalid"] == 1, stats
     assert stats["shed_expired"] == 8, stats
     assert stats["drained"] == 4, stats
-    print(f"# overload: served {len(scores)} scores at v{ver} under latency+swap faults; "
-          f"quarantined={store.quarantined}; telemetry={stats}")
+    say(f"# overload: served {len(scores)} scores at v{ver} under latency+swap faults; "
+        f"quarantined={store.quarantined}; telemetry={stats}")
 
 
 def mixed_density_dataset(args, seed: int = 0):
@@ -250,8 +268,10 @@ def scenario_lost_bucket(args, mesh, dev) -> None:
     window mid-path kills the solve after a checkpoint and the resume
     reproduces the path bit for bit."""
     work_mesh = mesh if mesh is not None else make_dev_mesh(1, 1, device=dev)
+    proc = is_process_mesh(work_mesh) and work_mesh.ranks > 1
     X, y = mixed_density_dataset(args)
-    slabs = to_slab_buckets(to_by_feature(X), 1)
+    X, y = trim_rows(work_mesh, X, y)
+    slabs = to_slab_buckets(to_by_feature(X), work_mesh.examples)
     assert len(slabs.buckets) >= 3, \
         f"need >= 3 capacity classes to stream, got {slabs.k_classes}"
 
@@ -262,7 +282,12 @@ def scenario_lost_bucket(args, mesh, dev) -> None:
         as_design(slabs, mesh=work_mesh, tile=tile), y, **kw)
 
     sizing = as_design(slabs, mesh=work_mesh, tile=tile)
-    budget = sizing.slab_nbytes(tile) - min(sizing.slab_bucket_nbytes(tile))
+    if proc:
+        # one budget on every rank: the largest floor of any rank's pieces
+        budget = max(stream_floor(sizing.inner.piece_nbytes(r, work_mesh.model_ranks))
+                     for r in range(work_mesh.model_ranks))
+    else:
+        budget = sizing.slab_nbytes(tile) - min(sizing.slab_bucket_nbytes(tile))
     opts_s = replace(opts, device_budget_bytes=budget)
 
     def streamed_design():
@@ -273,9 +298,15 @@ def scenario_lost_bucket(args, mesh, dev) -> None:
         des = streamed_design()
         streamed = _estimator(work_mesh, dev, opts_s).path(des, y, **kw)
     stats = des.residency_stats()[tile]
-    assert stats["streamed"] and stats["evictions"] > 0, stats
+    assert proc or (stats["streamed"] and stats["evictions"] > 0), stats
     assert stats["retries"] == 2, stats
     assert same_path(streamed, base), "the streamed path differs from the resident one"
+    if proc:
+        say(f"# lost-bucket: rank 0's {stats['n_buckets']} pieces under budget {budget}B "
+            f"(streamed={stats['streamed']}, evictions={stats['evictions']}), two put "
+            f"failures retried on every rank, the path bit-identical to the resident one; "
+            f"the fatal window does not apply to a process mesh")
+        return
 
     # fatal: a failure window >= the retry budget, placed after half the
     # healthy run's puts, so the path dies mid-solve with checkpoints down
@@ -291,10 +322,10 @@ def scenario_lost_bucket(args, mesh, dev) -> None:
         assert died, "the fatal prefetch window never fired"
         resumed = _estimator(work_mesh, dev, opts_s).path(streamed_design(), y, **ckpt, **kw)
     assert same_path(resumed, base), "the resumed streamed path differs from the resident one"
-    print(f"# lost-bucket: streamed {stats['n_buckets']} buckets under budget {budget}B "
-          f"(hit_rate={stats['hit_rate']:.2f}, evictions={stats['evictions']}), transient "
-          f"faults retried, fatal window after {stats['puts'] // 2} puts resumed "
-          f"bit-identically")
+    say(f"# lost-bucket: streamed {stats['n_buckets']} buckets under budget {budget}B "
+        f"(hit_rate={stats['hit_rate']:.2f}, evictions={stats['evictions']}), transient "
+        f"faults retried, fatal window after {stats['puts'] // 2} puts resumed "
+        f"bit-identically")
 
 
 def run(names, args, mesh, dev) -> None:
@@ -307,7 +338,8 @@ def main(argv=None):
     ap.add_argument("--scenario", default="all", choices=SCENARIOS + ("all",))
     ap.add_argument("--smoke", action="store_true", help="small shapes")
     ap.add_argument("--mesh", default="local",
-                    help="'local' (default) or '1xM': a (1, M) mesh")
+                    help="'local' (default), '1xM' (a (1, M) mesh) or, with --backend, "
+                         "'DxM' / 'PxDxM' over the world's ranks")
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--p", type=int, default=128)
     ap.add_argument("--path-len", type=int, default=4)
@@ -317,12 +349,18 @@ def main(argv=None):
                          "PATH.events.jsonl / PATH.summary.json")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    add_world_args(ap)
     args = ap.parse_args(argv)
+    if args.spawn:
+        raise SystemExit(spawn_world("repro_torch.launch.chaos_glm",
+                                     sys.argv[1:] if argv is None else argv, args.spawn))
     if args.smoke:
         args.n, args.p, args.path_len = min(args.n, 128), min(args.p, 64), \
             min(args.path_len, 3)
     dev = resolve_device(args.device)
-    mesh = parse_mesh(args.mesh, dev)
+    mesh = mesh_from_args(args, dev)
+    if mesh is not None:
+        dev = mesh.device
 
     todo = SCENARIOS if args.scenario == "all" else (args.scenario,)
     if args.trace is None:
@@ -337,7 +375,7 @@ def main(argv=None):
                         raise SystemExit(
                             f"FAIL: scenario {name} ran under --trace but counter "
                             f"{cname} never fired (value={got})")
-                print(f"# trace: {name} fault counters fired: " + ", ".join(
+                say(f"# trace: {name} fault counters fired: " + ", ".join(
                     f"{c}={obs.registry.value(c)}" for c in EXPECT[name]))
         dumped = obs.summary().get("counters", {})
         for name in todo:
@@ -346,11 +384,12 @@ def main(argv=None):
                     raise SystemExit(
                         f"FAIL: counter {cname} fired live but is missing from the "
                         f"summary dump")
-        files = obs.export(args.trace)
-        print(f"# trace: {files['trace']} (open in Perfetto) | summary: "
-              f"{files['summary']} (python -m repro_torch.obs.report {files['summary']})")
+        files = obs.export(f"{args.trace}.rank{mesh.rank}"
+                           if is_process_mesh(mesh) and mesh.rank else args.trace)
+        say(f"# trace: {files['trace']} (open in Perfetto) | summary: "
+            f"{files['summary']} (python -m repro_torch.obs.report {files['summary']})")
     if args.smoke:
-        print("CHAOS SMOKE OK")
+        say("CHAOS SMOKE OK")
 
 
 if __name__ == "__main__":

@@ -4,6 +4,8 @@ the counterpart of ``repro/launch/serve_glm.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_glm --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_glm --smoke --mesh 1x4
+    PYTHONPATH=src python -m repro_torch.launch.serve_glm --smoke --mesh 2x4 \
+        --backend gloo --device cpu --spawn 8
     PYTHONPATH=src python -m repro_torch.launch.serve_glm --load-path ckpt/ \
         --batch 256 --steps 50
     PYTHONPATH=src python -m repro_torch.launch.serve_glm --smoke --device cpu \
@@ -21,6 +23,14 @@ second. ``--smoke`` also checks the served scores bit-equal to
 shorter path in mid-traffic. Runs on the card (``--device cuda``, the
 default, raising without one) unless ``--device cpu`` is given.
 
+``--mesh`` takes ``local``, ``1xM`` (a ``DevMesh`` store) or, with
+``--backend`` (``launch.world``: under torchrun, or ``--spawn N`` ranks
+started from one command), ``DxM`` / ``PxDxM`` / ``prod`` over the
+ranks of a ``torch.distributed`` world: every rank fits the same path on
+its piece of the design, keeps its block of the store, packs the same
+traffic in the mesh's example shards and serves the whole batch's scores
+(``launch.mesh.parse_mesh``); rank 0 prints.
+
 ``--trace PATH`` runs the launcher under ``repro_torch.obs.observe()``:
 the rounds run in a ``serve(steps=)`` span around the batcher's
 ``encode`` / ``drain`` and the scorer's ``score`` spans (the store's
@@ -34,6 +44,7 @@ PATH.summary.json`` renders it).
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -41,9 +52,10 @@ import torch
 
 from repro_torch.api import LogisticL1, PathResult, ShardedDesign, SlabDesign
 from repro_torch.configs.base import GLMConfig
+from repro_torch.core import engine
 from repro_torch.data.synthetic import make_glm_dataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_dev_mesh
+from repro_torch.launch.world import add_world_args, is_rank_zero, mesh_from_args, spawn_world
 from repro_torch.obs import observe
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import PathScorer, PathStore, RequestBatcher
@@ -84,6 +96,12 @@ def serve_loop(scorer, batcher, reqs, lams, *, steps: int):
     return total, time.perf_counter() - t0, versions
 
 
+def say(*args) -> None:
+    """Print on rank 0 of a world (or in none)."""
+    if is_rank_zero():
+        print(*args)
+
+
 def smoke_check(store, scorer, batch, n_live: int, path) -> None:
     """Served scores bit-equal to ``decision_function`` at every lambda of
     ``path``: through a ``SlabDesign`` of the packed batch on a local
@@ -99,25 +117,20 @@ def smoke_check(store, scorer, batch, n_live: int, path) -> None:
         beta = torch.nn.functional.pad(path.betas[lam_i].to(dev),
                                        (0, batch.p_pad - path.betas.shape[1]))
         # allow[torch-host-sync]: the smoke check's reference scores (decision_function), an oracle beside the served read
-        ref = est.decision_function(design, beta=beta).cpu().numpy()[:n_live]
+        ref = est.decision_function(design, beta=beta).cpu().numpy()[:n_live]  # allow[torch-nonfinite-guard]: the oracle compared bit for bit, not served
         got, _ = scorer.score(batch, np.full(n_live, path.lambdas[lam_i]))
         if not np.array_equal(got, ref):
             raise SystemExit(
                 f"FAIL: served scores not bit-equal to decision_function at lambda "
                 f"index {lam_i} (max |diff| {np.max(np.abs(got - ref)):.3e})")
-    print(f"# smoke: served scores bit-equal to decision_function at all {len(path)} "
-          f"lambdas")
+    say(f"# smoke: served scores bit-equal to decision_function at all {len(path)} "
+        f"lambdas")
 
 
-def parse_mesh(spec: str, device):
-    """``"local"`` -> None; ``"1xM"`` -> a (1, M) mesh on ``device``."""
-    if spec == "local":
-        return None
-    try:
-        data, model = (int(v) for v in spec.lower().split("x"))
-    except ValueError:
-        raise SystemExit(f"--mesh takes 'local' or '1xM', got {spec!r}")
-    return make_dev_mesh(data, model, device=device)
+def trim_rows(mesh, X, y):
+    """The first rows of (X, y) that the mesh's example shards divide."""
+    n = y.shape[0] - y.shape[0] % (1 if mesh is None else mesh.examples)
+    return X[:n], y[:n]
 
 
 def main(argv=None):
@@ -125,7 +138,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="small shapes, plus the bit-equality and hot-swap checks")
     ap.add_argument("--mesh", default="local",
-                    help="'local' (default) or '1xM': a (1, M) mesh store")
+                    help="'local' (default), '1xM' (a (1, M) mesh store) or, with "
+                         "--backend, 'DxM' / 'PxDxM' / 'prod' over the world's ranks")
     ap.add_argument("--batch", type=int, default=64, help="max requests per scoring launch")
     ap.add_argument("--steps", type=int, default=20, help="drain -> score rounds to time")
     ap.add_argument("--n", type=int, default=512)
@@ -142,12 +156,18 @@ def main(argv=None):
                     help="run under repro_torch.obs and write PATH.trace.json (Perfetto), "
                          "PATH.events.jsonl and PATH.summary.json with the span totals and "
                          "the submit -> score latency histogram")
+    add_world_args(ap)
     args = ap.parse_args(argv)
+    if args.spawn:
+        raise SystemExit(spawn_world("repro_torch.launch.serve_glm",
+                                     sys.argv[1:] if argv is None else argv, args.spawn))
     if args.smoke:
         args.n, args.p, args.path_len = min(args.n, 256), min(args.p, 128), \
             min(args.path_len, 4)
     dev = resolve_device(args.device)
-    mesh = parse_mesh(args.mesh, dev)
+    mesh = mesh_from_args(args, dev)
+    if mesh is not None:
+        dev = mesh.device
     if args.trace is None:
         _run(args, dev, mesh)
         return
@@ -156,9 +176,11 @@ def main(argv=None):
     summary = obs.summary()
     hist = summary.get("histograms", {}).get("serve.latency_s")
     if hist and hist["count"]:
-        print(f"# submit->score latency ({hist['count']} requests): "
-              f"p50 {hist['p50'] * 1e3:.2f}ms / p95 {hist['p95'] * 1e3:.2f}ms / "
-              f"p99 {hist['p99'] * 1e3:.2f}ms")
+        say(f"# submit->score latency ({hist['count']} requests): "
+            f"p50 {hist['p50'] * 1e3:.2f}ms / p95 {hist['p95'] * 1e3:.2f}ms / "
+            f"p99 {hist['p99'] * 1e3:.2f}ms")
+    if not is_rank_zero():
+        return
     files = obs.export(args.trace)
     print(f"# trace: {files['trace']} (open in Perfetto) | summary: {files['summary']} "
           f"(python -m repro_torch.obs.report {files['summary']})")
@@ -170,23 +192,22 @@ def _run(args, dev, mesh) -> None:
 
     if args.load_path:
         path = PathResult.load(args.load_path, device=dev)
-        print(f"# loaded path: L={len(path)} p={path.betas.shape[1]} from {args.load_path}")
+        say(f"# loaded path: L={len(path)} p={path.betas.shape[1]} from {args.load_path}")
     else:
         cfg = GLMConfig(name="serve-glm", num_examples=args.n, num_features=args.p,
                         density=0.1)
         ds = make_glm_dataset(cfg, np.random.default_rng(0), device=dev)
-        path = LogisticL1(mesh=mesh, device=dev).path(ds.X_train, ds.y_train,
-                                                      path_len=args.path_len)
-        # allow[torch-host-sync]: PathResult.nnz is a numpy array
-        print(f"# fitted path: L={len(path)} p={args.p} nnz={path.nnz.tolist()}")
-    if args.save_path:
+        X, y = trim_rows(mesh, ds.X_train, ds.y_train)
+        path = LogisticL1(mesh=mesh, device=dev).path(X, y, path_len=args.path_len)
+        say(f"# fitted path: L={len(path)} p={args.p} nnz={[int(v) for v in path.nnz]}")
+    if args.save_path and is_rank_zero():
         path.save(args.save_path)
         print(f"# saved path to {args.save_path}")
 
     store = PathStore(path, mesh=mesh, tile=args.tile, device=dev)
     scorer = PathScorer(store)
     p = store.snapshot.p
-    batcher = RequestBatcher(p, max_batch=args.batch, pad_p_to=store.pad_p_to)
+    batcher = RequestBatcher(p, max_batch=args.batch, dp=store.dp, pad_p_to=store.pad_p_to)
     reqs, lams = make_traffic(np.random.default_rng(0), p, args.batch * args.steps,
                               path.lambdas)
 
@@ -196,8 +217,8 @@ def _run(args, dev, mesh) -> None:
     warm_batch, warm_lams = batcher.drain()
     scorer.score(warm_batch, warm_lams)
     total, secs, _ = serve_loop(scorer, batcher, reqs, lams, steps=args.steps)
-    print(f"# served {total} scores in {secs:.3f}s -> {total / max(secs, 1e-12):,.0f} "
-          f"scores/sec (batch <= {args.batch}, mesh={args.mesh}, device={dev})")
+    say(f"# served {total} scores in {secs:.3f}s -> {total / max(secs, 1e-12):,.0f} "
+        f"scores/sec (batch <= {args.batch}, mesh={args.mesh}, device={dev})")
 
     if args.smoke:
         smoke_check(store, scorer, warm_batch, warm_batch.n_live, path)
@@ -211,9 +232,17 @@ def _run(args, dev, mesh) -> None:
         got, v_after = scorer.score(warm_batch, warm_lams)
         if v_after != v_before + 1 or len(got) != warm_batch.n_live:
             raise SystemExit("FAIL: hot-swap version bookkeeping broken")
-        print(f"# smoke: hot-swap v{v_before} -> v{v_after} served {len(got)} scores "
-              f"without dropping the batch")
-        print("SERVE SMOKE OK")
+        if mesh is not None and mesh.ranks > 1:
+            # every rank serves the same version
+            seen = mesh.all_reduce(torch.tensor([v_after], dtype=torch.int64,
+                                                device=dev if mesh.backend == "nccl" else "cpu"),
+                                   mesh.axis_names)
+            # allow[torch-nonfinite-guard]: an integer sum of the ranks' version numbers
+            if int(engine.host_read(seen[0])) != v_after * mesh.ranks:
+                raise SystemExit("FAIL: the ranks serve different store versions")
+        say(f"# smoke: hot-swap v{v_before} -> v{v_after} served {len(got)} scores "
+            f"without dropping the batch")
+        say("SERVE SMOKE OK")
 
 
 if __name__ == "__main__":

@@ -32,10 +32,10 @@ from repro_torch.resilience.inject import (
     take_prefetch_failure,
     take_swap_failure,
 )
-from repro_torch.resilience.progress import PathProgress
+from repro_torch.resilience.progress import PathProgress, foreign_layout, rank_directory
 from repro_torch.resilience.retry import RetriesExhausted, retry_call
 
 __all__ = ["EngineFault", "FaultPlan", "InjectedFault", "InjectedKill", "PathProgress",
            "RetriesExhausted", "active_plan", "arm_engine_fault", "corrupt_checkpoint",
-           "inject_faults", "maybe_kill", "retry_call", "serve_delay", "take_load_failure",
-           "take_prefetch_failure", "take_swap_failure"]
+           "foreign_layout", "inject_faults", "maybe_kill", "rank_directory", "retry_call",
+           "serve_delay", "take_load_failure", "take_prefetch_failure", "take_swap_failure"]

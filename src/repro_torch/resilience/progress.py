@@ -19,6 +19,24 @@ slot that fails its integrity check
 ``meta`` is skipped and the next-older retained slot is used --
 corruption costs re-solving a few lambdas, not the whole path.
 
+On a process mesh of several ranks (``LogisticL1.path`` over a design
+split between ranks) each rank's margins ``m`` are its own example
+shard, so each rank keeps its own rotated slots, in a directory of its
+own under the shared one (:func:`rank_directory`)::
+
+    <dir>/rank-00000/point-00004/   rank 0's slots and its LATEST pointer
+    <dir>/rank-00000/LATEST
+    <dir>/rank-00001/point-00004/   ... one directory per rank ...
+
+and each slot's meta also names the mesh (``"mesh"``: pods, data, model,
+ranks). Ranks can die between their own saves, so a resume does not
+trust any one rank's pointer: every rank lists the slots it can load
+(:meth:`PathProgress.load_all`), and one reduction over the mesh picks
+the newest index that every rank holds (``keep=2`` keeps the slot before
+the newest for exactly this); a slot written for another grid, ``p`` or
+mesh, or a directory laid out for another world (:func:`foreign_layout`),
+raises on every rank.
+
 Arrays go in and come out as numpy arrays (a tensor leaf is copied to
 the host by the checkpointer); the caller decides how they reach the
 device.
@@ -36,7 +54,30 @@ from repro_torch.checkpoint import CheckpointCorruption, save_pytree
 from repro_torch.checkpoint.checkpointer import _read_manifest, verify_payload
 
 _SLOT_RE = re.compile(r"^point-(\d{5})$")
+_RANK_RE = re.compile(r"^rank-(\d{5})$")
 _POINTER = "LATEST"
+
+
+def rank_directory(directory: str, rank: int) -> str:
+    """Rank ``rank``'s own progress directory under a shared one."""
+    return os.path.join(directory, f"rank-{rank:05d}")
+
+
+def foreign_layout(directory: str, ranks: int) -> bool:
+    """Whether ``directory`` holds progress laid out for another world
+    than one of ``ranks`` ranks: one device's slots (``point-*``,
+    ``LATEST``) beside per-rank ones, or a rank directory past the
+    world (``ranks`` of 1: any rank directory)."""
+    if not os.path.isdir(directory):
+        return False
+    for name in os.listdir(directory):
+        match = _RANK_RE.match(name)
+        if match:
+            if ranks == 1 or int(match.group(1)) >= ranks:
+                return True
+        elif ranks > 1 and (_SLOT_RE.match(name) or name == _POINTER):
+            return True
+    return False
 
 
 def _leaf_name(path_str: str) -> str:
@@ -132,6 +173,18 @@ class PathProgress:
                 f"slot {directory} has no meta side channel — cannot "
                 f"rebuild path state from arrays alone")
         return arrays, meta
+
+    def load_all(self) -> Dict[int, Tuple[Dict[str, np.ndarray], dict]]:
+        """Every retained slot that passes its integrity check, as
+        ``{idx: (arrays, meta)}`` (a process mesh's resume picks among
+        them by one reduction)."""
+        out = {}
+        for idx in self.slots():
+            try:
+                out[idx] = self.load(idx)
+            except CheckpointCorruption:
+                continue
+        return out
 
     def load_latest(self) -> Optional[Tuple[int, Dict[str, np.ndarray], dict]]:
         """Newest loadable state: ``(idx, arrays, meta)``, walking back

@@ -13,7 +13,14 @@ path:
 * a store on a (1, M) mesh: the slab as (M, p_pad / M, K) and the stack
   as (L, M, p_pad / M), one launch for all M blocks, then the blocks'
   partial scores summed in a fixed order (:func:`make_path_margins`, the
-  shape of ``core.distributed.make_slab_margins``).
+  shape of ``core.distributed.make_slab_margins``);
+* a store on a process mesh: the batch comes packed in the mesh's
+  example shards (``store.dp``); each rank stages its shard's rows of its
+  run of the feature axis, runs the same launch for its M / R blocks
+  against its block of the stack, one ``all_reduce(SUM)`` over ``model``
+  assembles its shard's scores, and the shards are collected over the
+  example axes, so every rank returns the whole batch's scores, as
+  ``decision_function`` on a process mesh does.
 
 Because the kernel's path mode keeps ``slab_spmv``'s products and sum
 order, a batch whose rows all ask for lambda ``l`` scores bit-identically
@@ -44,12 +51,16 @@ class NonFiniteScores(RuntimeError):
     suspect."""
 
 
-def stage_batch(batch: PackedBatch, lam_idx: np.ndarray, device):
+def stage_batch(batch: PackedBatch, lam_idx: np.ndarray, device, *, feats=slice(None),
+                shard=slice(None)):
     """The batch's (p_pad, DP, K) slab pair and ``lam_idx`` on ``device``,
-    copied from pinned host memory without blocking the host."""
-    rows, vals = put_slab(torch.from_numpy(batch.row_idx), torch.from_numpy(batch.values),
-                          device)
-    idx = torch.from_numpy(lam_idx)
+    copied from pinned host memory without blocking the host; with
+    ``feats`` / ``shard``, only those features of those example shards
+    (a process-mesh rank's piece)."""
+    rows, vals = (torch.from_numpy(np.ascontiguousarray(a[feats, shard]))
+                  for a in (batch.row_idx, batch.values))
+    rows, vals = put_slab(rows, vals, device)
+    idx = torch.from_numpy(np.ascontiguousarray(lam_idx))
     if torch.device(device).type == "cuda":
         idx = idx.pin_memory().to(device, non_blocking=True)
     return rows, vals, idx
@@ -57,20 +68,25 @@ def stage_batch(batch: PackedBatch, lam_idx: np.ndarray, device):
 
 def make_path_margins(mesh, n_loc: int):
     """``path_margins(row_idx, values, lam_idx, betas) -> scores`` over a
-    (p_pad, 1, K) request slab and the (L, p_pad) stack on a (1, M) mesh:
-    ``core.distributed.make_slab_margins`` with the coefficient vector
-    replaced by the stack and a per-row point index. One launch for the M
-    feature blocks, their partial scores summed in a fixed order."""
-    num_blocks = mesh.shape["model"]
+    (w, 1, K) request slab and the (L, w) stack: on a (1, M) mesh the
+    whole padded feature axis (w = p_pad), on a process mesh the rank's
+    run of it and its block of the stack, one example shard's rows and
+    their point indices. ``core.distributed.make_slab_margins`` with the
+    coefficient vector replaced by the stack and a per-row point index:
+    one launch for the rank's M / R feature blocks (all M on one
+    device), their partial scores summed in a fixed order, then over
+    ``model`` (one ``all_reduce``; nothing on one rank)."""
+    num_blocks = mesh.local_blocks
 
     def path_margins(row_idx, values, lam_idx, betas):
         p, _, k = row_idx.shape
         if p % num_blocks:
-            raise ValueError(f"p={p} must be a multiple of M={num_blocks}")
+            raise ValueError(f"p={p} must be a multiple of the rank's {num_blocks} blocks")
         rows = row_idx[:, 0].reshape(num_blocks, p // num_blocks, k)
         vals = values[:, 0].reshape(num_blocks, p // num_blocks, k)
         stack = betas.reshape(betas.shape[0], num_blocks, p // num_blocks)
-        return kops.slab_path_spmv(rows, vals, lam_idx, stack, n_loc=n_loc).sum(0)
+        part = kops.slab_path_spmv(rows, vals, lam_idx, stack, n_loc=n_loc).sum(0)
+        return mesh.all_reduce(part, "model")
 
     return path_margins
 
@@ -136,11 +152,24 @@ class PathScorer:
 
     def _dispatch(self, batch: PackedBatch, lam_idx: np.ndarray, snap: StoreSnapshot):
         """The batch's (batch_cap,) scores on the store's device, one
-        ``slab_path_spmv`` launch."""
-        if batch.dp != 1:
-            raise ValueError(f"scoring needs dp=1 slabs (one card), got dp={batch.dp}")
-        rows, vals, idx = stage_batch(batch, lam_idx, snap.betas.device)
-        if self.store.mesh is None:
-            return kops.slab_path_spmv(rows[:, 0], vals[:, 0], idx, snap.betas,
-                                       n_loc=batch.n_loc)
-        return make_path_margins(self.store.mesh, batch.n_loc)(rows, vals, idx, snap.betas)
+        ``slab_path_spmv`` launch (on a process mesh each rank's, then its
+        shard's sum over ``model`` and the shards' collection)."""
+        mesh = self.store.mesh
+        if batch.dp != self.store.dp:
+            raise ValueError(f"the store scores slabs of dp={self.store.dp} example shards, "
+                             f"got dp={batch.dp} -- pack with dp=store.dp")
+        if not self.store._proc:
+            rows, vals, idx = stage_batch(batch, lam_idx, snap.betas.device)
+            if mesh is None:
+                return kops.slab_path_spmv(rows[:, 0], vals[:, 0], idx, snap.betas,
+                                           n_loc=batch.n_loc)
+            return make_path_margins(mesh, batch.n_loc)(rows, vals, idx, snap.betas)
+        from repro_torch.core.distributed import example_rows, rank_features
+        from repro_torch.sharding.collect import concat_replicated
+
+        d = mesh.example_rank
+        rows, vals, idx = stage_batch(batch, lam_idx[example_rows(batch.batch_cap, mesh)],
+                                      snap.betas.device, feats=rank_features(batch.p_pad, mesh),
+                                      shard=slice(d, d + 1))
+        part = make_path_margins(mesh, batch.n_loc)(rows, vals, idx, snap.betas)
+        return concat_replicated(part, mesh, axis=mesh.example_axes)

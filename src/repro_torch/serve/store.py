@@ -14,6 +14,13 @@ coefficients it started with -- a batch never mixes two versions --
 and the next batch sees the new version. The store keeps the last good
 snapshot for :meth:`PathStore.quarantine`; an older stack is freed when
 the last batch holding its snapshot drops it.
+
+On a process mesh (``launch.mesh.ProcMesh``) each rank keeps its
+(L, p_pad / R) block of the stack: the columns of its run of the padded
+feature axis, the work order of its piece of a ``ShardedDesign``. Every
+rank publishes the same results in the same order and the scorer hands
+every rank the same scores, so versions, swaps and quarantines move in
+step on every rank.
 """
 from __future__ import annotations
 
@@ -41,8 +48,9 @@ class StoreSnapshot:
 
     version: int
     lambdas: np.ndarray          # (L,) descending, host
-    betas: torch.Tensor          # (L, p_pad) on the store's device
+    betas: torch.Tensor          # (L, p_pad) on the store's device; a rank's block
     p: int                       # original feature count (before padding)
+    width: Optional[int] = None  # p_pad, where ``betas`` is a rank's (L, p_pad / R) block
 
     @property
     def num_points(self) -> int:
@@ -50,7 +58,7 @@ class StoreSnapshot:
 
     @property
     def p_pad(self) -> int:
-        return int(self.betas.shape[1])
+        return int(self.betas.shape[1]) if self.width is None else self.width
 
     def index_of(self, lam: float) -> int:
         """Nearest stored lambda in log space (the grid is geometric)."""
@@ -72,18 +80,18 @@ class PathStore:
     stack lives on the mesh's device with its feature axis padded to
     ``M * tile``, the slab partition of ``ShardedDesign``'s residency, so
     that served scores are bit-identical to
-    ``LogisticL1.decision_function`` through the same mesh. A store on a
-    process mesh (``launch.mesh.ProcMesh``) is not ported yet and raises."""
+    ``LogisticL1.decision_function`` through the same mesh. On a process
+    mesh (``launch.mesh.ProcMesh``, every rank building its store from the
+    same results) the rank keeps its (L, p_pad / R) block, and requests
+    come packed in ``dp`` example shards (:attr:`dp`, the mesh's pod x
+    data extent), as the reference's ``in_specs`` shard them."""
 
     def __init__(self, result: Optional[PathResult] = None, *, mesh=None,
                  tile: int = 128, device=DEFAULT_DEVICE):
         from repro_torch.launch.mesh import is_process_mesh
 
-        if is_process_mesh(mesh):
-            raise NotImplementedError(
-                "serving from a process-mesh store is not ported yet (ROADMAP queue 1 "
-                "item 4); build the store on one device (mesh=None or a DevMesh)")
         self.mesh = mesh
+        self._proc = is_process_mesh(mesh)
         self.tile = tile
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self._snap: Optional[StoreSnapshot] = None
@@ -101,6 +109,12 @@ class PathStore:
         if self.mesh is None:
             return 1
         return self.mesh.shape["model"] * self.tile
+
+    @property
+    def dp(self) -> int:
+        """The example shards a request batch is packed in
+        (``RequestBatcher(dp=)``): the mesh's pod x data extent, else 1."""
+        return 1 if self.mesh is None else int(self.mesh.examples)
 
     @property
     def snapshot(self) -> StoreSnapshot:
@@ -140,17 +154,26 @@ class PathStore:
             if take_swap_failure():
                 raise InjectedFault("injected PathStore.swap failure")
             src = torch.as_tensor(result.betas, dtype=torch.float32)
-            # a stack of the store's own, padded to the alignment
-            betas = torch.zeros(src.shape[0], p + (-p) % self.pad_p_to,
-                                dtype=torch.float32, device=self.device)
-            betas[:, :p].copy_(src)
+            # a stack of the store's own, padded to the alignment: on a
+            # process mesh the rank's block of its columns
+            p_pad = p + (-p) % self.pad_p_to
+            lo, hi = 0, p_pad
+            if self._proc:
+                from repro_torch.core.distributed import rank_features
+
+                cols = rank_features(p_pad, self.mesh)
+                lo, hi = cols.start, cols.stop
+            betas = torch.zeros(src.shape[0], hi - lo, dtype=torch.float32, device=self.device)
+            live = max(0, min(hi, p) - lo)
+            if live:
+                betas[:, :live].copy_(src[:, lo:lo + live])
             if self.device.type == "cuda":
                 # complete before publishing: scorers may run on other streams
                 torch.cuda.current_stream(self.device).synchronize()
             self._version += 1
             new = StoreSnapshot(version=self._version,
                                 lambdas=np.asarray(result.lambdas, np.float64),
-                                betas=betas, p=p)
+                                betas=betas, p=p, width=p_pad if self._proc else None)
             self._prev = self._snap   # last-good, for quarantine()
             self._snap = new          # the publish
         obs_registry.counter("serve.swaps").inc()

@@ -26,7 +26,7 @@ import torch
 
 
 def replicate(piece: torch.Tensor, mesh, *, start: int, size: int,
-              axis: str = "model") -> torch.Tensor:
+              axis="model") -> torch.Tensor:
     """The (size, ...) tensor whose rows ``[start, start + len(piece))``
     are this rank's ``piece``, the rest from the other ranks of ``axis``,
     on every rank of it. The ranks' pieces must not overlap. On an axis
@@ -41,20 +41,16 @@ def replicate(piece: torch.Tensor, mesh, *, start: int, size: int,
     return merge_exact(full, mesh, axis=axis)
 
 
-def _index(mesh, axis: str) -> int:
-    return mesh.data_rank if axis == "data" else mesh.model_rank
-
-
-def concat_replicated(piece: torch.Tensor, mesh, *, axis: str = "model") -> torch.Tensor:
+def concat_replicated(piece: torch.Tensor, mesh, *, axis="model") -> torch.Tensor:
     """The pieces of every rank along ``axis`` (each rank passes its own,
     all of one shape) concatenated in rank order along dim 0, on every
     rank of the axis."""
     ranks = mesh.axis_ranks(axis)
     n = piece.shape[0]
-    return replicate(piece, mesh, start=_index(mesh, axis) * n, size=ranks * n, axis=axis)
+    return replicate(piece, mesh, start=mesh.axis_index(axis) * n, size=ranks * n, axis=axis)
 
 
-def merge_exact(part: torch.Tensor, mesh, *, axis: str = "model") -> torch.Tensor:
+def merge_exact(part: torch.Tensor, mesh, *, axis="model") -> torch.Tensor:
     """The sum over the ranks of ``axis`` of parts in which every position
     is nonzero on at most one rank, bit for bit, on every rank: a float32
     part is summed as its int32 bit patterns (a -0.0 or a NaN arrives as
@@ -67,7 +63,7 @@ def merge_exact(part: torch.Tensor, mesh, *, axis: str = "model") -> torch.Tenso
     return mesh.all_reduce(part, axis)
 
 
-def route(part_for, mesh, *, axis: str = "model") -> torch.Tensor:
+def route(part_for, mesh, *, axis="model") -> torch.Tensor:
     """This rank's block, when each rank of ``axis`` owns one block built
     from pieces that the ranks hold: ``part_for(j)`` is this rank's share
     of rank j's block, zero where it holds none of it (see
@@ -80,6 +76,6 @@ def route(part_for, mesh, *, axis: str = "model") -> torch.Tensor:
     mine = None
     for j in range(ranks):
         block = merge_exact(part_for(j), mesh, axis=axis)
-        if j == _index(mesh, axis):
+        if j == mesh.axis_index(axis):
             mine = block
     return mine

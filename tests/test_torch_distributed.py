@@ -679,26 +679,78 @@ def test_world_of_one_is_bit_equal_to_dev_mesh(world_of_one, kind):
     assert torch.equal(b1, b2) and h1 == h2 and r1 == r2
 
 
-def test_not_ported_parts_raise_on_a_process_mesh(world_of_one, tmp_path):
-    from repro_torch.api import LogisticL1, SlabDesign
+@pytest.mark.parametrize("part", ["streamed", "resumed", "faulted", "served"])
+def test_not_ported_parts_raise_on_a_process_mesh(world_of_one, tmp_path, part):
+    """What a process mesh once refused now runs: on a world of one rank a
+    streamed path, a killed and resumed path, a fit under an injected
+    fault and a store's served scores are bit-equal to the same calls on
+    ``make_dev_mesh(1, 4)``, with the same host reads."""
+    from repro_torch.api import LogisticL1, SlabDesign, as_design
+    from repro_torch.core import engine
     from repro_torch.core.dglmnet import DGLMNETOptions
-    from repro_torch.resilience import EngineFault, FaultPlan, inject_faults
-    from repro_torch.serve.store import PathStore
+    from repro_torch.data.byfeature import SlabBuckets
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.resilience import (EngineFault, FaultPlan, InjectedKill,
+                                        inject_faults)
+    from repro_torch.serve import PathScorer, PathStore, RequestBatcher
 
     inp = _inputs()
-    design = SlabDesign(torch.from_numpy(inp["srows1"]), torch.from_numpy(inp["svals1"]),
-                        len(inp["sy"]))
-    with pytest.raises(NotImplementedError, match="streamed residency"):
-        LogisticL1(DGLMNETOptions(device_budget_bytes=1 << 20, **SLAB), mesh=world_of_one,
-                   device="cpu").fit(design, inp["sy"], 1.0)
-    est = LogisticL1(DGLMNETOptions(**SLAB), mesh=world_of_one, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpointed and resumed"):
-        est.path(design, inp["sy"], path_len=2, resume_from=str(tmp_path / "p"))
-    with inject_faults(FaultPlan(engine=EngineFault(kind="margins", at_iter=1))):
-        with pytest.raises(NotImplementedError, match="fault injection"):
-            est.fit(design, inp["sy"], 1.0)
-    with pytest.raises(NotImplementedError, match="process-mesh store"):
-        PathStore(mesh=world_of_one)
+    rows, vals = torch.from_numpy(inp["srows1"]), torch.from_numpy(inp["svals1"])
+    n = len(inp["sy"])
+    runs = []
+    for mesh in (world_of_one, make_dev_mesh(1, 4, device="cpu")):
+        engine.host_syncs = 0
+        if part == "streamed":
+            w = rows.shape[0] // 3
+            slabs = SlabBuckets(tuple((rows[i * w:(i + 1) * w], vals[i * w:(i + 1) * w],
+                                       torch.arange(i * w, (i + 1) * w)) for i in range(3)),
+                                n_loc=n, p=rows.shape[0])
+            sizing = as_design(slabs, mesh=mesh, tile=16)
+            budget = 2 * max(sizing.slab_bucket_nbytes(16))
+            design = as_design(slabs, mesh=mesh, tile=16, device_budget_bytes=budget)
+            est = LogisticL1(DGLMNETOptions(device_budget_bytes=budget, **PATH), mesh=mesh,
+                             device="cpu")
+            pts = est.path(design, inp["sy"], path_len=3)
+            stats = design.residency_stats()[16]
+            assert stats["streamed"] and stats["evictions"] > 0, stats
+            runs.append((pts.betas, list(pts.f), engine.host_syncs))
+        elif part == "resumed":
+            design = SlabDesign(rows, vals, n)
+            est = LogisticL1(DGLMNETOptions(**PATH), mesh=mesh, device="cpu")
+            d = str(tmp_path / f"progress{len(runs)}")
+            with pytest.raises(InjectedKill):
+                with inject_faults(FaultPlan(kill_after_points=1)):
+                    est.path(design, inp["sy"], path_len=3, checkpoint_every=1, resume_from=d)
+            engine.host_syncs = 0
+            pts = est.path(design, inp["sy"], path_len=3, checkpoint_every=1, resume_from=d)
+            full = est.path(design, inp["sy"], path_len=3)
+            assert torch.equal(pts.betas, full.betas) and list(pts.f) == list(full.f)
+            runs.append((pts.betas, list(pts.f), engine.host_syncs))
+        elif part == "faulted":
+            est = LogisticL1(DGLMNETOptions(**SLAB), mesh=mesh, device="cpu")
+            with inject_faults(FaultPlan(engine=EngineFault("margins", at_iter=2),
+                                         engine_fires=1)):
+                res = est.fit(SlabDesign(rows, vals, n), inp["sy"], float(inp["slam"]),
+                              densify=False)
+            assert res.status_name == "NONFINITE_OBJECTIVE" and res.n_iters == 1
+            runs.append((res.beta, res.objective_history, engine.host_syncs))
+        else:
+            est = LogisticL1(DGLMNETOptions(**PATH), mesh=mesh, device="cpu")
+            path = est.path(SlabDesign(rows, vals, n), inp["sy"], path_len=3)
+            store = PathStore(path, mesh=mesh, tile=16, device="cpu")
+            batcher = RequestBatcher(rows.shape[0], max_batch=16, dp=store.dp,
+                                     pad_p_to=store.pad_p_to)
+            rng = np.random.default_rng(0)
+            for i in range(12):
+                batcher.submit({f"tok{t}": float(rng.normal())
+                                for t in rng.integers(0, 4 * rows.shape[0], size=5)},
+                               float(path.lambdas[i % 3]))
+            batch, lams = batcher.drain()
+            engine.host_syncs = 0
+            scores, ver = PathScorer(store).score(batch, lams)
+            runs.append((torch.from_numpy(scores), [ver], engine.host_syncs))
+    (b1, h1, r1), (b2, h2, r2) = runs
+    assert torch.equal(b1, b2) and h1 == h2 and r1 == r2
 
 
 def test_mesh_constructors_and_guards(world_of_one):

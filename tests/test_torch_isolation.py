@@ -168,3 +168,44 @@ def test_paper_entry_points_raise_without_a_card(entry):
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+def test_the_walk_covers_the_mesh_slice():
+    """The process mesh's streamed residency, resumable paths, store and
+    launchers (the world helper included) and the two lint rules that
+    guard them are walked, and importing them loads neither JAX nor the
+    reference."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    names = ("launch/mesh.py", "launch/world.py", "launch/serve_glm.py", "launch/chaos_glm.py",
+             "serve/store.py", "serve/scoring.py", "data/residency.py", "api/design.py",
+             "api/estimator.py", "resilience/progress.py", "core/distributed.py",
+             "core/screening.py", "sharding/collect.py", "analysis/rules/bucket_residency.py",
+             "analysis/rules/nonfinite_guard.py")
+    for name in names:
+        assert name in checked, name
+    mods = [f"repro_torch.{n[:-3].replace('/', '.')}" for n in names]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("entry", ["serve_glm", "serve_glm_mesh", "chaos_glm_mesh", "store"])
+def test_mesh_slice_entry_points_raise_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.launch import chaos_glm, serve_glm
+    from repro_torch.serve import PathStore
+
+    call = {
+        "serve_glm": lambda: serve_glm.main(["--smoke"]),
+        "serve_glm_mesh": lambda: serve_glm.main(["--smoke", "--mesh", "1x4"]),
+        "chaos_glm_mesh": lambda: chaos_glm.main(["--smoke", "--mesh", "1x4"]),
+        "store": lambda: PathStore(),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()

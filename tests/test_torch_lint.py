@@ -78,6 +78,19 @@ FLAGGED = {
                     return x
                 return y
             """},
+    "torch-bucket-residency": {"src/repro_torch/api/x.py": """\
+        import torch
+
+        def place(design, dev):
+            rows = design.row_idx.to(dev)
+            return rows, design.values.to(device=dev, dtype=torch.float32)
+        """},
+    "torch-nonfinite-guard": {"src/repro_torch/serve/x.py": """\
+        from repro_torch.core import engine
+
+        def score(batch, betas):
+            return engine.host_read(batch @ betas)
+        """},
 }
 
 PASSED = {
@@ -167,6 +180,40 @@ PASSED = {
                     y = _plain(x)
                 return y
             """},
+    "torch-bucket-residency": {
+        "src/repro_torch/data/residency.py": """\
+            def put_slab(row_idx, values, device):
+                return row_idx.to(device), values.to(device)
+            """,
+        "src/repro_torch/api/x.py": """\
+            import torch
+
+            from repro_torch.data.residency import put_slab
+
+            def place(design, beta, dev):
+                rows, vals = put_slab(design.row_idx, design.values, dev)
+                return rows.to(torch.int32), vals, beta.to(dev)
+            """},
+    "torch-nonfinite-guard": {
+        "src/repro_torch/serve/x.py": """\
+            import numpy as np
+
+            from repro_torch.core import engine
+
+            def score(batch, betas):
+                scores = engine.host_read(batch @ betas)
+                if not np.all(np.isfinite(scores)):
+                    raise ValueError("poisoned")
+                return scores
+            """,
+        "src/repro_torch/core/engine.py": """\
+            def host_read(t):
+                return t.tolist()
+            """,
+        "src/repro_torch/api/y.py": """\
+            def count(t):
+                return t.item()
+            """},
 }
 
 
@@ -179,6 +226,8 @@ def test_rule_flags_its_fixture(tmp_path, rule):
         assert {f for f, _, _ in got} == {"src/repro_torch/kernels/bar.py",
                                            "src/repro_torch/kernels/ops.py"}
     if rule == "torch-metric-discipline":
+        assert [line for _, line, _ in got] == [4, 5]
+    if rule == "torch-bucket-residency":
         assert [line for _, line, _ in got] == [4, 5]
 
 
@@ -211,7 +260,7 @@ def test_pragma_suppresses_and_a_reasonless_pragma_is_a_finding(tmp_path):
 def test_rule_ids_are_the_ports_own():
     assert {r.RULE_ID for r in ALL_RULES} == {
         "torch-host-sync", "torch-metric-discipline", "torch-bench-timing",
-        "torch-kernel-plain"}
+        "torch-kernel-plain", "torch-bucket-residency", "torch-nonfinite-guard"}
     assert all(r.DOC for r in ALL_RULES)
 
 
