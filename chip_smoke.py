@@ -253,6 +253,25 @@ of which fails the run with a non-zero exit:
    tokens with marker token 7, features in chunks of 256 through the
    flash kernel, exactly 22 launches per chunk, finite; an 8-point
    probe path on a 4/5 split, every point OK, nnz and AUPRC printed);
+12b. LM training cell -- tinyllama-1.1b at full width (bf16 weights drawn
+   on the card from seed 0, float32 AdamW moments, remat on) trained
+   through ``train.make_train_step`` on batches of 8 x 2048 tokens of
+   ``data.lm_data.zipf_corpus`` (vocab 32,000) under ``warmup_cosine``:
+   one warm-up step (the schedule's step 0, lr 0), then 8 timed steps
+   (CUDA events) under torch's sync debug mode. Gates: every loss and
+   grad norm finite, the last loss below the first, no synchronising
+   call and no ``flash_attention`` launch in the steps, the kernel's
+   wrapper (and a training forward that asks for it) refusing an operand
+   that requires grad, and a prefill of the trained weights through the
+   kernel (22 launches) within phase 11's bound of the plain chunked
+   path. Prints ms per step, tokens/s, the share of the bound (8 N
+   FLOP a token at the bf16 peak: forward, backward and the remat
+   forward), peak memory and one more step's device time by kernel
+   (torch.profiler);
+12c. LM training agreement -- tinyllama's float32 ``smoke()`` model
+   trained 3 steps on the card and on the CPU from the same numpy
+   weights and batches: losses within 1e-4 relative, every weight and
+   moment within rtol 1e-4 / atol 1e-5;
 13. times -- each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (CUDA events, median of 25
    launches after warm-up, L2 flushed before each), beside its bound;
@@ -3224,6 +3243,183 @@ def phase_lm_agree(torch):
 
 
 # ---------------------------------------------------------------------------
+# the LM training cell: tinyllama-1.1b, AdamW, remat, 8 x 2048 tokens a step
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 8, 2048, 8
+#: the launcher's default --lr and corpus length (launch/train.py)
+LM_TRAIN_LR, LM_TRAIN_CORPUS = 3e-4, 1_000_000
+#: the card against the CPU, float32 smoke model (tests/test_torch_train.py)
+LM_TRAIN_RTOL, LM_TRAIN_ATOL = 1e-4, 1e-5
+
+
+def phase_lm_train(torch, card):
+    """The training cell: tinyllama-1.1b at full width, one warm-up step and
+    ``LM_TRAIN_STEPS`` timed steps through ``make_train_step``, on the card."""
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.data.lm_data import batches, zipf_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import make_prefill_step, make_train_state, make_train_step
+
+    flash_attention = import_module("repro_torch.kernels.flash_attention")
+    cfg = MODEL_CONFIGS[LM_ARCH]
+    check(cfg.remat and cfg.optimizer == "adamw" and cfg.param_dtype == "bfloat16",
+          f"{cfg.name}: expected bf16 weights, AdamW and remat")
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(torch.Generator(device="cuda").manual_seed(0), cfg,
+                             device="cuda")
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    total = LM_TRAIN_STEPS + 1
+    step_fn = make_train_step(cfg, lr_schedule=warmup_cosine(LM_TRAIN_LR, max(total // 10, 1),
+                                                             total))
+    t0 = time.perf_counter()
+    corpus = zipf_corpus(np.random.default_rng(0), cfg.vocab_size, LM_TRAIN_CORPUS)
+    it = batches(corpus, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg=cfg, rng=np.random.default_rng(0),
+                 device="cuda")
+    data = [next(it) for _ in range(total)]
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    # warm-up: step 0 of the schedule (lr 0), allocator pools and cuBLAS handles
+    state, _ = step_fn(state, data[0])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(LM_TRAIN_STEPS + 1)]
+
+    def run():
+        nonlocal state
+        out = []
+        events[0].record()
+        for i in range(LM_TRAIN_STEPS):
+            state, m = step_fn(state, data[i + 1])
+            events[i + 1].record()
+            out.append(m)
+        return out
+
+    metrics, sites, stacks = under_sync_debug(torch, run)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(LM_TRAIN_STEPS)]
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    losses = torch.stack([m["loss"] for m in metrics]).cpu()
+    gnorms = torch.stack([m["grad_norm"] for m in metrics]).cpu()
+    lrs = torch.stack([m["lr"] for m in metrics]).cpu()
+    ntok = int(metrics[0]["ntok"])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    ms = statistics.mean(step_ms)
+    # 6 N D for forward and backward, 2 N D for the remat forward (attention's
+    # own score products not counted), at the bf16 dense peak
+    flops = 8 * n_params * tokens
+    bound = flops / BF16_FLOPS_PER_S * 1e3
+    print(f"[lm-train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} bf16 parameters, AdamW (float32 m, v), remat on, batch {LM_TRAIN_BATCH} "
+          f"x {LM_TRAIN_SEQ} tokens ({ntok} labelled), warmup_cosine({LM_TRAIN_LR}, "
+          f"{max(total // 10, 1)}, {total}); corpus and batches {t_data:.2f} s")
+    print(f"[lm-train] losses {[round(float(x), 4) for x in losses]}, grad norms "
+          f"{[round(float(x), 4) for x in gnorms]}, lr {[float(x) for x in lrs]}")
+    print(f"[lm-train] step ms {[round(x, 2) for x in step_ms]}: mean {ms:.2f} ms, median "
+          f"{statistics.median(step_ms):.2f} ms, {tokens * 1e3 / ms:.0f} tokens/s; bound "
+          f"{bound:.2f} ms ({flops:.4g} FLOP at {BF16_FLOPS_PER_S:.4g} FLOP/s), share "
+          f"{bound / ms:.4f}; peak device memory {peak:.2f} GB (earlier phases' "
+          f"{held / 1e9:.2f} GB not included); launches {counts}; on {card}")
+    print(f"[lm-train] synchronising calls in {LM_TRAIN_STEPS} steps, by call site: "
+          f"{dict(sites)}")
+    for site, stack in stacks.items():
+        print(f"[lm-train] synchronising call at {site}:\n{stack}")
+    check(bool(torch.isfinite(losses).all() and torch.isfinite(gnorms).all()),
+          f"a training step's loss or grad norm is not finite: {losses}, {gnorms}")
+    check(float(losses[-1]) < float(losses[0]),
+          f"the loss did not fall: {float(losses[0])} -> {float(losses[-1])}")
+    check(not sites, f"a training step synchronised: {dict(sites)}")
+    check(counts["flash_attention"] == 0,
+          f"flash_attention launched {counts['flash_attention']} times inside the steps")
+    # the forward-only kernel refuses an operand that requires grad
+    q = data[0]["tokens"].new_zeros((1, 128, 4, 64), dtype=torch.bfloat16).requires_grad_()
+    refused = []
+    for call in (lambda: flash_attention.flash_attention_kernel(q, q.detach(), q.detach()),
+                 lambda: forward(state["params"], data[0], cfg, mode="train",
+                                 use_flash_kernel=True)):
+        try:
+            call()
+        except RuntimeError as err:
+            refused.append("forward-only" in str(err))
+    check(refused == [True, True] and ops.launch_counts()["flash_attention"] == 0,
+          f"the flash kernel took an operand that requires grad: {refused}")
+    del q
+    # where a step's time goes: one more step (the schedule's step 9) profiled
+    _, rows, busy, wall_ms = device_profile(torch, "lm train step",
+                                            lambda: step_fn(state, data[-1]))
+    report_profile("lm train step", f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens", rows, busy,
+                   wall_ms, card)
+    # the trained weights still serve through the kernel
+    tokens_in = {"tokens": data[-1]["tokens"]}
+    ops.reset_launch_counts()
+    logits_k, _ = make_prefill_step(cfg, use_flash_kernel=True)(state["params"], tokens_in)
+    n_flash = ops.launch_counts()["flash_attention"]
+    logits_p, _ = make_prefill_step(cfg, use_flash_kernel=False)(state["params"], tokens_in)
+    e = max_err(logits_k, logits_p)
+    print(f"[lm-train] trained weights, last prefill logits through the kernel vs the plain "
+          f"chunked path: max abs err {e:.4g} (tol {LM_LOGIT_TOL}; max |logit| "
+          f"{float(logits_p.float().abs().max()):.3g}), {n_flash} flash_attention launches; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; on {card}")
+    check(n_flash == cfg.num_layers, f"the trained weights' prefill launched flash_attention "
+                                     f"{n_flash} times, expected {cfg.num_layers}")
+    check(bool(torch.isfinite(logits_k.float()).all()) and e <= LM_LOGIT_TOL,
+          f"trained weights: kernel prefill differs from the plain path by {e}")
+    stats = {"ms": ms, "tokens_s": tokens * 1e3 / ms, "bound_ms": bound, "peak_gb": peak,
+             "loss0": float(losses[0]), "loss_last": float(losses[-1])}
+    del state, data, metrics, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_lm_train_agree(torch):
+    """The float32 smoke() model trained 3 steps on the card and on the CPU
+    from the same numpy weights and batches."""
+    from repro_torch.api.convert import (train_state_from_reference,
+                                         train_state_to_reference)
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.data.lm_data import zipf_corpus
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import make_train_state, make_train_step
+
+    cfg = MODEL_CONFIGS[LM_ARCH].smoke()
+    init = train_state_to_reference(make_train_state(torch.Generator().manual_seed(6), cfg,
+                                                     device="cpu"))
+    corpus = zipf_corpus(np.random.default_rng(6), cfg.vocab_size, 50_000)
+    windows = [corpus[i * 4 * 129:(i + 1) * 4 * 129].reshape(4, 129) for i in range(3)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = train_state_from_reference(init, cfg, device=dev)
+        step = make_train_step(cfg, lr_schedule=warmup_cosine(1e-3, 1, 3))
+        losses = []
+        for w in windows:
+            batch = {"tokens": torch.from_numpy(w[:, :-1].copy()).to(dev),
+                     "labels": torch.from_numpy(w[:, 1:].copy()).to(dev)}
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        out[dev] = (torch.stack(losses).cpu(), train_state_to_reference(state))
+    (lc, sc), (lp, sp) = out["cuda"], out["cpu"]
+    rel = float(((lc - lp).abs() / lp.abs()).max())
+    worst, bad = 0.0, []
+    for (path, a), (_, b) in zip(_flatten(sc), _flatten(sp)):
+        worst = max(worst, float(np.abs(a.astype(np.float64) - b).max(initial=0.0)))
+        if not np.allclose(a, b, rtol=LM_TRAIN_RTOL, atol=LM_TRAIN_ATOL):
+            bad.append(path)
+    print(f"[lm-train-agree] {cfg.name} float32, 3 steps of 4 x 128 tokens: card vs cpu "
+          f"losses {[round(float(x), 6) for x in lc]} vs {[round(float(x), 6) for x in lp]} "
+          f"(max rel diff {rel:.3g}, tol {LM_TRAIN_RTOL}); weights and moments max abs diff "
+          f"{worst:.3g} (rtol {LM_TRAIN_RTOL}, atol {LM_TRAIN_ATOL}), outside: {bad}")
+    check(rel <= LM_TRAIN_RTOL, f"card vs cpu training losses differ by {rel} relative")
+    check(not bad, f"card vs cpu trained weights differ at {bad}")
+
+
+# ---------------------------------------------------------------------------
 # the paper's comparison: truncated gradient, Table 3, Figure 1, the
 # ablation and the sparse probe, on the epsilon cell and tinyllama
 # ---------------------------------------------------------------------------
@@ -4165,6 +4361,8 @@ def main() -> int:
     paper_launches, paper = phase_paper(torch, card, ds, lm_inputs)
     for name, count in paper_launches.items():
         launches[name] = launches.get(name, 0) + count
+    lm_train = phase_lm_train(torch, card)
+    phase_lm_train_agree(torch)
     table = phase_times(torch, gen, errs, launches, card, sparse_inputs, ds)
     del sparse_inputs
     for mode, (wall, wall2, iters, syncs) in fits.items():
@@ -4209,6 +4407,11 @@ def main() -> int:
     print(f"[times] lm serve {LM_ARCH}: prefill {lm_stats['prefill_ms']:.2f} ms, decode "
           f"{lm_stats['decode_ms_per_token']:.3f} ms/token, whole generation "
           f"{lm_stats['wall_s']:.3f} s, {lm_stats['peak_gb']:.2f} GB peak, on {card}")
+    print(f"[times] lm train {LM_ARCH}: {lm_train['ms']:.2f} ms per step of "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} tokens, {lm_train['tokens_s']:.0f} tokens/s, "
+          f"bound share {lm_train['bound_ms'] / lm_train['ms']:.4f}, loss "
+          f"{lm_train['loss0']:.4f} -> {lm_train['loss_last']:.4f}, {lm_train['peak_gb']:.2f} GB "
+          f"peak, on {card}")
     phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))

@@ -15,6 +15,16 @@ into the port's model, unstacking each segment's leading layer axis.
 :func:`path_from_reference` turns the reference's ``PathResult`` (its
 arrays read as numpy) into the port's, so the two paths can be set side
 by side, point by point.
+
+:func:`train_state_from_reference` loads a reference train state
+(``jax.tree.map(np.asarray, make_train_state(key, cfg))``: weights,
+optimizer state and step) into the port's (``train.state``), unstacking
+each segment's weights and its per-layer moments (SGD's ``mu``, AdamW's
+``m`` and ``v``) as the weights are; Adafactor's accumulators stay stacked
+in both. :func:`train_state_to_reference` goes the other way, into numpy
+in the reference's stacked tree; :func:`reference_tree` is that tree as
+tensors, which ``checkpoint.save_pytree`` writes in the reference's
+layout.
 """
 from __future__ import annotations
 
@@ -99,3 +109,71 @@ def lm_params_from_reference(params, cfg, *, device=DEFAULT_DEVICE):
     if n_ref != used:
         raise ValueError(f"the reference tree has {n_ref} per-layer leaves, the port {used}")
     return lm
+
+
+def _train_tree(state) -> dict:
+    """The port's train state with the weights as ``train.state.param_tree``
+    gives them (each segment's weight a ``Stacked`` of its layers)."""
+    from repro_torch.train.state import param_tree
+
+    return {"params": param_tree(state["params"]), "opt": state["opt"], "step": state["step"]}
+
+
+def reference_tree(state) -> dict:
+    """The train state in the reference's tree, as detached tensors on the
+    state's device: every ``Stacked`` leaf stacked on a leading layer
+    axis."""
+    from repro_torch.optim.optimizers import Stacked, tree_map
+
+    def leaf(x):
+        return x.stack().detach() if isinstance(x, Stacked) else x.detach()
+
+    return tree_map(leaf, _train_tree(state))
+
+
+def train_state_to_reference(state) -> dict:
+    """The train state as numpy arrays in the reference's stacked tree.
+    bfloat16 leaves come back as float32 arrays of the same values (as
+    the reference's checkpoints store them)."""
+    from repro_torch.optim.optimizers import tree_map
+
+    def host(t):
+        # allow[torch-host-sync]: a conversion to numpy for a caller that asked for the host copy
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    return tree_map(host, reference_tree(state))
+
+
+def train_state_from_reference(state_np, cfg, *, device=DEFAULT_DEVICE) -> dict:
+    """The port's train state (``train.state.make_train_state``'s layout,
+    weights trainable) holding the reference's weights, optimizer state and
+    step. Raises on a missing, extra or mis-shaped leaf."""
+    from repro_torch.optim.optimizers import Stacked
+    from repro_torch.train.state import make_train_state
+
+    state = make_train_state(None, cfg, device=resolve_device(device))
+
+    def fill(node, ref, path):
+        if isinstance(node, dict):
+            if not isinstance(ref, dict) or set(ref) != set(node):
+                have = sorted(ref) if isinstance(ref, dict) else type(ref).__name__
+                raise ValueError(f"{path}: reference keys {have}, port keys {sorted(node)}")
+            for k in node:
+                fill(node[k], ref[k], f"{path}[{k!r}]")
+            return
+        if isinstance(node, (list, tuple)) and not isinstance(node, Stacked):
+            if len(ref) != len(node):
+                raise ValueError(f"{path}: {len(ref)} reference entries, {len(node)} in the port")
+            for i, (n, r) in enumerate(zip(node, ref)):
+                fill(n, r, f"{path}[{i}]")
+            return
+        t = _as_tensor(ref)
+        if tuple(t.shape) != tuple(node.shape):
+            raise ValueError(f"{path}: reference shape {tuple(t.shape)}, port shape "
+                             f"{tuple(node.shape)}")
+        for dst, src in (zip(node, t) if isinstance(node, Stacked) else ((node, t),)):
+            dst.copy_(src)
+
+    with torch.no_grad():
+        fill(_train_tree(state), state_np, "")
+    return state

@@ -19,6 +19,9 @@ warpgroup runs Q K^T and P V as ``wgmma`` with float32 accumulation, the
 probabilities split into two bf16 halves (hi + lo) so that P V stays as
 exact as the reference's float32 product. float32 runs FMA on the CUDA
 cores. The plain version is ``ref.flash_attention_ref``.
+
+Forward only, as the reference's kernel: an operand that requires grad
+is refused, since autograd would take the kernel's output for a constant.
 """
 from __future__ import annotations
 
@@ -109,6 +112,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True):
     read in place through their strides; returns a new (B, S, H, D)
     tensor of q's type."""
     global launches
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise RuntimeError("flash_attention is forward-only: an operand requires grad; "
+                           "train through the chunked path (use_flash_kernel=False)")
     B, S, H, Hk, D = check_operands(q, k, v)
     o = torch.empty(B, S, H, D, dtype=q.dtype, device=q.device)
     if q.dtype == torch.bfloat16:

@@ -1,7 +1,8 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """The LM zoo of the port (counterpart of ``repro.models``): the dense
-attention architectures (GQA, RoPE, RMSNorm, SwiGLU) for prefill and
-decode. MoE, SSM, MLA, hybrid and enc-dec layers are not ported yet."""
+attention architectures (GQA, RoPE, RMSNorm, SwiGLU) for training,
+prefill and decode. MoE, SSM, MLA, hybrid and enc-dec layers are not
+ported yet."""
 from repro_torch.models.params import (count_params_analytic, forward, init_cache, init_params,
                                        is_encdec, param_bytes)
 from repro_torch.models.transformer import (init_lm_cache, init_lm_params, lm_forward,

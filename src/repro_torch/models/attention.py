@@ -13,7 +13,14 @@ reference's ``jnp.repeat`` of K/V to H heads, without the H/Hk-fold copy.
 ``use_flash_kernel`` is the reference's switch: plain causal or full
 self-attention whose shape qualifies goes to ``kernels.ops.flash_attention``
 (the hand-written kernel on the card, its plain version on the CPU). It
-defaults to False, as in the reference.
+defaults to False, as in the reference. The kernel is forward-only, so
+training keeps it off; its wrapper raises on an operand that requires
+grad.
+
+While autograd records, each query chunk of the chunked path runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the reference
+wraps its chunk body in ``jax.checkpoint``: backward recomputes a chunk's
+(C, Sk) scores instead of keeping every chunk's.
 
 Modes: ``"train"``/``"prefill"`` attend over the whole sequence (prefill
 also returns its K/V); ``"decode"`` writes the new token's K/V into the
@@ -27,6 +34,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
@@ -135,11 +143,17 @@ def _sdpa_torch(q, k, v, q_pos, k_pos, *, scale, causal=True, window=0,
     if sq <= q_chunk or sq % q_chunk != 0:
         mask = _mask_chunk(q_pos, k_pos, causal=causal, window=window, kv_limit=kv_limit)
         return _sdpa_block(q, k, v, mask, scale=scale)
+
+    def body(qi, pi, k, v):
+        mask = _mask_chunk(pi, k_pos, causal=causal, window=window, kv_limit=kv_limit)
+        return _sdpa_block(qi, k, v, mask, scale=scale)
+
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     outs = []
     for lo in range(0, sq, q_chunk):
-        mask = _mask_chunk(q_pos[:, lo:lo + q_chunk], k_pos, causal=causal,
-                           window=window, kv_limit=kv_limit)
-        outs.append(_sdpa_block(q[:, lo:lo + q_chunk], k, v, mask, scale=scale))
+        args = (q[:, lo:lo + q_chunk], q_pos[:, lo:lo + q_chunk], k, v)
+        outs.append(checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+                    if remat else body(*args))
     return torch.cat(outs, dim=1)
 
 

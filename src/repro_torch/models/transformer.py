@@ -11,6 +11,14 @@ segment for K and for V, and each layer writes its slice in place.
 Frontends, multi-token prediction, the long-context modes, LayerNorm,
 the GELU MLP, QKV bias and float16 are not ported yet: a config that
 selects one raises when the model is built.
+
+Remat: in ``"train"`` mode with ``cfg.remat`` set, while autograd records
+and a weight requires grad, each layer runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the reference
+wraps each layer in ``jax.checkpoint``: backward keeps each layer's input
+and recomputes the rest. The values are the same; only memory changes.
+Weights are built frozen (``requires_grad=False``); ``train.state``
+turns them trainable.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import init_layer, init_layer_cache, layer_forward
@@ -133,15 +142,22 @@ def lm_hidden(
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
 
     window = cfg.attention.sliding_window
+    remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
+             and any(p.requires_grad for p in params.parameters()))
     new_seg_caches = []
     for i, (kind, _) in enumerate(segments_of(cfg)):
         seg_cache = cache["segments"][i] if cache is not None else None
         new_layers = []
         for j, layer in enumerate(params.segments[i]):
             c_l = _tree_map(lambda a: a[j], seg_cache) if seg_cache is not None else None
-            x, new_c, _ = layer_forward(layer, x, cfg=cfg, kind=kind, positions=positions,
-                                        mode=mode, cache=c_l, cache_index=cache_index,
-                                        window=window, use_flash_kernel=use_flash_kernel)
+            kw = dict(cfg=cfg, kind=kind, positions=positions, mode=mode, cache=c_l,
+                      cache_index=cache_index, window=window, use_flash_kernel=use_flash_kernel)
+            if remat:
+                # no ported layer draws random numbers: no RNG state to replay
+                x, new_c, _ = checkpoint(layer_forward, layer, x, use_reentrant=False,
+                                         preserve_rng_state=False, **kw)
+            else:
+                x, new_c, _ = layer_forward(layer, x, **kw)
             new_layers.append(new_c)
         if mode == "prefill":
             new_seg_caches.append(_tree_stack(new_layers))

@@ -1,18 +1,24 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Counterpart of ``repro.train``: the GLM path's evaluation metrics
-(:mod:`repro_torch.train.metrics`) and the LM zoo's steps (prefill and
-decode so far; the training step is not ported yet).
+(:mod:`repro_torch.train.metrics`) and the LM zoo's training state and
+steps (train, prefill and decode).
 
 As in the reference, importing this package does not load the LM zoo:
-the steps resolve on first use (PEP 562), so ``import
+the state and the steps resolve on first use (PEP 562), so ``import
 repro_torch.train.metrics`` stays zoo-free."""
 from importlib import import_module
 
 from repro_torch.train.metrics import accuracy, auprc, glm_eval_fn, log_loss
 
 _LAZY = {
+    "make_train_state": "repro_torch.train.state",
+    "train_state_shapes": "repro_torch.train.state",
+    "IGNORE": "repro_torch.train.train_step",
+    "cross_entropy": "repro_torch.train.train_step",
+    "make_loss_fn": "repro_torch.train.train_step",
     "make_prefill_step": "repro_torch.train.train_step",
     "make_serve_step": "repro_torch.train.train_step",
+    "make_train_step": "repro_torch.train.train_step",
 }
 
 __all__ = sorted(["accuracy", "auprc", "glm_eval_fn", "log_loss", *_LAZY])

@@ -194,6 +194,46 @@ def test_the_walk_covers_the_mesh_slice():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_the_walk_covers_the_training_slice():
+    """The optimizers, the train state, the token pipeline and the training
+    launcher are walked, and importing them loads neither JAX nor the
+    reference."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    names = ("optim/__init__.py", "optim/optimizers.py", "optim/schedule.py",
+             "data/lm_data.py", "train/state.py", "train/train_step.py", "launch/train.py")
+    for name in names:
+        assert name in checked, name
+    mods = [f"repro_torch.{n[:-3].replace('/', '.')}".removesuffix(".__init__") for n in names]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("entry", ["train_launcher", "train_state", "lm_batches"])
+def test_training_entry_points_raise_without_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.data.lm_data import batches
+    from repro_torch.launch import train
+    from repro_torch.train import make_train_state
+
+    cfg = MODEL_CONFIGS["tinyllama-1.1b"].smoke()
+    call = {
+        "train_launcher": lambda: train.main(["--arch", "tinyllama-1.1b", "--smoke",
+                                              "--steps", "1"]),
+        "train_state": lambda: make_train_state(None, cfg),
+        "lm_batches": lambda: batches(np.zeros(100, np.int32), 2, 8),
+    }[entry]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+
+
 @pytest.mark.parametrize("entry", ["serve_glm", "serve_glm_mesh", "chaos_glm_mesh", "store"])
 def test_mesh_slice_entry_points_raise_without_a_card(entry):
     if torch.cuda.is_available():

@@ -25,9 +25,6 @@ SUBPACKAGES = ("kernels", "api", "train", "models", "configs")
 NOT_YET = {
     # configs/shapes.py: queue 1 item 5.11
     "configs": {"SHAPES", "InputShape", "get_shape"},
-    # train/state.py and the training step: queue 1 item 5.1
-    "train": {"IGNORE", "cross_entropy", "make_loss_fn", "make_train_step",
-              "make_train_state", "train_state_shapes"},
 }
 
 
@@ -79,6 +76,8 @@ def test_importing_train_and_configs_loads_no_lm_model():
             "import repro_torch.train, repro_torch.configs\n"
             "from repro_torch.train import auprc, glm_eval_fn\n"
             "assert 'repro_torch.models.transformer' not in sys.modules\n"
+            "import repro_torch.train.metrics\n"
+            "assert 'repro_torch.optim' not in sys.modules\n"
             "from repro_torch.train import make_prefill_step\n"
             "assert 'repro_torch.models.transformer' in sys.modules\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
