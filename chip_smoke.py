@@ -218,7 +218,8 @@ of which fails the run with a non-zero exit:
    card: not a multi-card speed);
 10. LM kernels -- ``flash_attention`` against its plain version at the
    serving cell's attention shape (B=8, S=2048, H=32, Hk=4, D=64), one
-   Hk == H shape and the reference's sweep shapes, in float32 (atol 2e-5)
+   Hk == H shape, the reference's sweep shapes, the probe's chunk and
+   the MoE cell's shape (B=8, S=2048, H=40, Hk=8, D=128), in float32 (atol 2e-5)
    and bfloat16 (atol 3e-2, and on every element within half a bf16 ulp
    plus 2e-5 of the plain version's float32 result before its cast),
    causal and full, two launches bit-equal;
@@ -288,7 +289,25 @@ of which fails the run with a non-zero exit:
    first three points in the sequential mode (busy and idle time, and
    its screen passes, gathers and layout sorts timed apart with CUDA
    events), one LM prefill and 8 decode steps after it; a profile with
-   no device time fails the run.
+   no device time fails the run;
+15. LM MoE cell -- after tinyllama's weights are freed,
+   llama4-scout-17b-a16e at full width (d_model 5120, 40/8 heads of 128,
+   16 experts of 8192 top-1 and a shared expert, vocab 202,048; bf16,
+   weights drawn on the card from seed 0) cut to its first 4 of 48
+   layers, serving phase 11's batch through ``generate``: one
+   ``flash_attention`` launch per layer in a generation and in a prefill,
+   that prefill's last logits within 0.25 of the plain chunked path's and
+   finite, one host read per generation under sync debug mode; prints
+   prefill ms, decode ms per token, peak memory, the prefill's
+   ``moe_drop_frac`` and the parameter counts (total, active) beside the
+   weights' bytes, profiles one prefill and 8 decode steps; its float32
+   smoke model on the card against the CPU (phase 12's check); the
+   kernel alone at the cell's attention shape beside its bound and SDPA;
+16. LM SSM cell -- mamba2-2.7b whole (64 layers, 80 SSD heads of 64,
+   d_state 128, chunk 256, tied vocab 50,280; bf16), the same serving and
+   gates with no attention layer (0 flash launches), its smoke model card
+   against CPU, and on the card's float32 smoke model a prefill of 128
+   tokens then one decode step within 1e-4 of a prefill of 129.
 
 Prints the kernel table as one JSON line, then the card's name and power
 limit, then a last JSON line ``{"ok": true, "device": {...}}``.
@@ -3067,15 +3086,27 @@ FLASH_BF16_REL, FLASH_BF16_ABS = 2.0 ** -8, 2e-5
 LM_LOGIT_TOL = 0.25
 #: the float32 smoke model on the card against the CPU (tests/test_torch_lm.py)
 LM_AGREE_TOL = 1e-4
+#: the MoE and SSM serving cells (phases 15, 16): llama4-scout-17b-a16e at
+#: full width cut to its first 4 of 48 layers (48 would be about 211 GB of
+#: bf16 weights), mamba2-2.7b whole; the tinyllama cell's batch, prompt
+#: and tokens
+MOE_ARCH, MOE_LAYERS, SSM_ARCH = "llama4-scout-17b-a16e", 4, "mamba2-2.7b"
+#: the MoE cell's attention (B, S, H, Hk, D): GQA group 5, D = 128
+MOE_FLASH_SHAPE = (LM_BATCH, LM_PROMPT, 40, 8, 128)
+#: a prefill of P tokens then one decode step against a prefill of P + 1,
+#: the float32 smoke model (tests/test_models.py's SSD check, its atol)
+SSM_DECODE_TOL = 1e-4
 
 
 def flash_shapes():
     """(label, B, S, H, Hk, D): the serving cell's attention, one Hk == H
-    shape, the reference's sweep shapes (tests/test_kernels.py) and the
-    sparse probe's chunk (phase 12a)."""
+    shape, the reference's sweep shapes (tests/test_kernels.py), the
+    sparse probe's chunk (phase 12a) and the MoE cell's attention (phase
+    15: GQA group 5, D = 128)."""
     return [("cell", LM_BATCH, LM_PROMPT, 32, 4, 64), ("Hk == H", 2, 1024, 16, 16, 64),
             ("sweep", 1, 256, 2, 2, 64), ("sweep", 2, 512, 4, 4, 32),
-            ("sweep", 1, 128, 1, 1, 128), ("probe", PROBE_CHUNK, PROBE_LEN, 32, 4, 64)]
+            ("sweep", 1, 128, 1, 1, 128), ("probe", PROBE_CHUNK, PROBE_LEN, 32, 4, 64),
+            ("moe cell", *MOE_FLASH_SHAPE)]
 
 
 def phase_lm_kernels(torch, gen):
@@ -3215,8 +3246,9 @@ def phase_lm(torch, card):
             dict(stats, wall_s=wall, peak_gb=peak), (cfg, params, prompts))
 
 
-def phase_lm_agree(torch):
-    """The float32 smoke() model with a 128-token prompt: card against CPU."""
+def phase_lm_agree(torch, arch: str = LM_ARCH, tag: str = "lm-agree"):
+    """The float32 smoke() model of ``arch`` with a 128-token prompt: card
+    against CPU."""
     import copy
 
     from repro_torch.configs import MODEL_CONFIGS
@@ -3224,7 +3256,7 @@ def phase_lm_agree(torch):
     from repro_torch.models import init_params
     from repro_torch.train import make_prefill_step
 
-    cfg = MODEL_CONFIGS[LM_ARCH].smoke()
+    cfg = MODEL_CONFIGS[arch].smoke()
     gen = torch.Generator().manual_seed(5)
     cpu = init_params(gen, cfg, device="cpu")
     prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, dtype=torch.int32)
@@ -3235,7 +3267,7 @@ def phase_lm_agree(torch):
     tc, _ = generate(card, cfg, prompts.cuda(), tokens=8)
     tp, _ = generate(cpu, cfg, prompts, tokens=8)
     e = max_err(lc.cpu(), lp)
-    print(f"[lm-agree] {cfg.name} float32, 2 x 128 prompt: card vs cpu last prefill logits "
+    print(f"[{tag}] {cfg.name} float32, 2 x 128 prompt: card vs cpu last prefill logits "
           f"max abs err {e:.3g} (tol {LM_AGREE_TOL}); greedy tokens "
           f"{'equal' if torch.equal(tc, tp) else 'DIFFERENT'}: {tc[0].tolist()}")
     check(e <= LM_AGREE_TOL, f"card vs cpu prefill logits differ by {e}")
@@ -3417,6 +3449,207 @@ def phase_lm_train_agree(torch):
           f"{worst:.3g} (rtol {LM_TRAIN_RTOL}, atol {LM_TRAIN_ATOL}), outside: {bad}")
     check(rel <= LM_TRAIN_RTOL, f"card vs cpu training losses differ by {rel} relative")
     check(not bad, f"card vs cpu trained weights differ at {bad}")
+
+
+# ---------------------------------------------------------------------------
+# the LM zoo's serving cells: llama4-scout-17b-a16e (MoE) and mamba2-2.7b (SSD)
+# ---------------------------------------------------------------------------
+
+
+def zoo_cell(torch, card, tag: str, cfg, cut: str):
+    """Serve ``cfg`` on the card as phase 11 serves tinyllama: weights drawn
+    on the card from seed 0, 8 prompts of 2048 tokens, 32 greedy tokens
+    through ``launch.serve.generate``. Gates: one flash_attention launch
+    per attention layer in a generation (none in decode), the same in one
+    prefill, whose logits are finite and (with attention layers) within
+    ``LM_LOGIT_TOL`` of the plain chunked path's, and one host read per
+    generation under sync debug mode. Prints the counts, weight bytes,
+    prefill and decode times and peak memory, then profiles one prefill
+    and 8 decode steps. Returns (flash launches in the timed generation,
+    stats, (cfg, params, prompts))."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import count_params_analytic, forward, init_params, param_bytes
+    from repro_torch.train import make_prefill_step
+
+    n_attn = sum(kind in ("attn", "moe") for kind in cfg.layer_kinds())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()          # by the earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(gen, cfg, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    total, active = count_params_analytic(cfg), cfg.num_active_params()
+    print(f"[{tag}] {cfg.name} ({cut}): {cfg.num_layers} layers {cfg.layer_kinds()[:2]}..., "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}), "
+          f"{cfg.param_dtype}; {n_params} parameters, {w_bytes / 1e9:.3f} GB of weights "
+          f"(param_bytes {param_bytes(cfg) / 1e9:.3f} GB), count_params_analytic {total}, "
+          f"num_active_params {active}; drawn on the card in {t_init:.2f} s; batch {LM_BATCH} x "
+          f"{LM_PROMPT} prompt tokens + {LM_TOKENS} greedy tokens; {n_attn} attention layers")
+    check(n_params == total, f"{tag}: {n_params} parameters, count_params_analytic {total}")
+    # warm-up (cuBLAS handles, allocator pools), outside the counts
+    generate(params, cfg, prompts, tokens=2)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out, stats = generate(params, cfg, prompts, tokens=LM_TOKENS)
+    wall = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    decode_ms = stats["decode_ms_per_token"]
+    print(f"[{tag}] serve: prefill {stats['prefill_ms']:.2f} ms ({LM_BATCH * LM_PROMPT} prompt "
+          f"tokens, {LM_BATCH * LM_PROMPT * 1e3 / stats['prefill_ms']:.0f} tokens/s), decode "
+          f"{decode_ms:.3f} ms/token ({LM_BATCH * 1e3 / decode_ms:.0f} tokens/s at batch "
+          f"{LM_BATCH}), whole generation {wall * 1e3:.1f} ms, peak device memory {peak:.2f} GB "
+          f"(weights and prompts included, earlier phases' {held / 1e9:.2f} GB not), launches "
+          f"{counts}, on {card}")
+    print(f"[{tag}] sample: {out[0, :16].tolist()}")
+    check(tuple(out.shape) == (LM_BATCH, LM_TOKENS) and out.dtype == torch.int32,
+          f"{tag}: generated {tuple(out.shape)} {out.dtype}")
+    check(0 <= int(out.min()) and int(out.max()) < cfg.padded_vocab,
+          f"{tag}: token ids out of range")
+    check(counts["flash_attention"] == n_attn,
+          f"{tag}: flash_attention launched {counts['flash_attention']} times in one "
+          f"generation, expected {n_attn} (once per attention layer in prefill, never in decode)")
+
+    # one prefill through the kernel, with the layers' aux, against the plain path
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _, aux = forward(params, {"tokens": prompts}, cfg, mode="prefill",
+                                 use_flash_kernel=True)
+    n_prefill = ops.launch_counts()["flash_attention"]
+    finite = bool(torch.isfinite(logits).all())
+    last_k = logits[:, -1].clone()
+    del logits
+    aux = {k: float(v) for k, v in aux.items()}
+    print(f"[{tag}] one prefill: {n_prefill} flash_attention launches, logits finite {finite}, "
+          f"aux {aux}")
+    check(n_prefill == n_attn, f"{tag}: {n_prefill} flash launches in a prefill, not {n_attn}")
+    check(finite, f"{tag}: prefill logits are not finite")
+    if n_attn:
+        logits_p, _ = make_prefill_step(cfg, use_flash_kernel=False)(params,
+                                                                     {"tokens": prompts})
+        last_p = logits_p[:, -1].clone()
+        del logits_p
+        e = max_err(last_k, last_p)
+        agree = float((last_k.argmax(-1) == last_p.argmax(-1)).float().mean())
+        print(f"[{tag}] last prefill logits, kernel vs plain chunked attention: max abs err "
+              f"{e:.4g} (tol {LM_LOGIT_TOL}; max |logit| {float(last_p.float().abs().max()):.3g}, "
+              f"std {float(last_p.float().std()):.3g}), next-token argmax agreement {agree:.3f}")
+        check(e <= LM_LOGIT_TOL, f"{tag}: prefill logits through the kernel differ from the "
+                                 f"plain path by {e}")
+        del last_p
+    del last_k
+    # one host read for the whole generation
+    _, sites, stacks = under_sync_debug(
+        torch, lambda: generate(params, cfg, prompts, tokens=LM_TOKENS))
+    print(f"[{tag}] synchronising calls in one generation, by call site: {dict(sites)}")
+    if sum(sites.values()) != 1:
+        for site, stack in stacks.items():
+            print(f"[{tag}] synchronising call at {site}:\n{stack}")
+    check(sum(sites.values()) == 1 and all(site.startswith("serve.py:") for site in sites),
+          f"{tag}: one generation made {sum(sites.values())} host reads: {dict(sites)}")
+    profile_prefill(torch, (cfg, params, prompts), card, label=tag)
+    return (counts["flash_attention"], dict(stats, wall_s=wall, peak_gb=peak, aux=aux),
+            (cfg, params, prompts))
+
+
+def phase_lm_moe(torch, card):
+    """Phase 15: llama4-scout-17b-a16e at full width, its first
+    ``MOE_LAYERS`` layers; its float32 smoke model card against CPU; the
+    kernel alone at the cell's attention shape (row 6b)."""
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.models.moe import capacity
+
+    t0 = time.perf_counter()
+    full = MODEL_CONFIGS[MOE_ARCH]
+    cfg = replace(full, num_layers=MOE_LAYERS)
+    att, moe = cfg.attention, cfg.moe
+    check((att.num_heads, att.num_kv_heads, att.head_dim) == MOE_FLASH_SHAPE[2:],
+          f"{cfg.name}: attention {att} is not the sweep's MoE shape {MOE_FLASH_SHAPE}")
+    launches, stats, inputs = zoo_cell(
+        torch, card, "lm-moe", cfg,
+        f"depth cut to {MOE_LAYERS} of {full.num_layers} layers; {moe.num_experts} experts "
+        f"of {moe.expert_d_ff}, top-{moe.top_k}, {moe.num_shared_experts} shared, capacity "
+        f"factor {moe.capacity_factor}; {att.num_heads}/{att.num_kv_heads} heads of "
+        f"{att.head_dim}")
+    drop = stats["aux"]["moe_drop_frac"]
+    print(f"[lm-moe] one prefill's moe_drop_frac: {drop:.6f} summed over the {MOE_LAYERS} "
+          f"layers as the reference sums it ({drop / MOE_LAYERS:.6f} a layer at capacity "
+          f"{capacity(LM_BATCH * LM_PROMPT, moe)} per expert), moe_lb_loss "
+          f"{stats['aux']['moe_lb_loss']:.6g}, moe_z_loss "
+          f"{stats['aux']['moe_z_loss']:.6g}")
+    del inputs
+    torch.cuda.empty_cache()
+    phase_lm_agree(torch, MOE_ARCH, "lm-moe-agree")
+    # row 6b: the kernel alone at the cell's attention shape
+    flush = torch.empty(256 * 2 ** 20, device="cuda")
+    row = flash_time_row(torch, *MOE_FLASH_SHAPE)
+    ms, plain_ms, library_ms, b_ms, b_by = time_row(torch, row, flush, card,
+                                                    label="flash_attention (moe cell, row 6b)")
+    print(f"[times] flash_attention (moe cell, row 6b): {launches} launches in the cell's "
+          f"generation, {b_ms / ms:.3f} of its bound, {library_ms / ms:.3f} of SDPA's time")
+    del row, flush
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[lm-moe] phase wall {wall:.1f} s; on {card}")
+    return launches, dict(stats, row6b=(ms, plain_ms, library_ms, b_ms), phase_s=wall)
+
+
+def ssm_decode_check(torch):
+    """The float32 smoke model of mamba2 on the card: a prefill of 128
+    tokens spliced into a cache, then one decode step, against a prefill
+    of the 129 tokens at the last position."""
+    from repro_torch.configs import MODEL_CONFIGS
+    from repro_torch.launch.serve import prefill
+    from repro_torch.models import forward, init_params
+
+    cfg = MODEL_CONFIGS[SSM_ARCH].smoke()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = init_params(gen, cfg, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    with torch.no_grad():
+        full, _, _ = forward(params, {"tokens": toks}, cfg, mode="prefill")
+        _, cache = prefill(params, cfg, toks[:, :128], 129)
+        dec, _, _ = forward(params, {"tokens": toks[:, 128:]}, cfg, mode="decode", cache=cache,
+                            cache_index=128)
+    e = max_err(dec[:, 0], full[:, 128])
+    print(f"[lm-ssm-agree] {cfg.name} float32 on the card: prefill of 128 tokens then one "
+          f"decode step vs a prefill of 129, last logits max abs err {e:.3g} (tol "
+          f"{SSM_DECODE_TOL})")
+    check(e <= SSM_DECODE_TOL, f"mamba2 smoke: decode after prefill differs by {e} from the "
+                               f"longer prefill")
+
+
+def phase_lm_ssm(torch, card):
+    """Phase 16: mamba2-2.7b whole; its float32 smoke model card against
+    CPU; prefill-then-decode against the longer prefill."""
+    from repro_torch.configs import MODEL_CONFIGS
+
+    t0 = time.perf_counter()
+    cfg = MODEL_CONFIGS[SSM_ARCH]
+    ssm = cfg.ssm
+    launches, stats, inputs = zoo_cell(
+        torch, card, "lm-ssm", cfg,
+        f"not cut; {ssm.num_heads(cfg.d_model)} SSD heads of {ssm.head_dim}, d_state "
+        f"{ssm.d_state}, chunk {ssm.chunk_size}, tied embeddings")
+    del inputs
+    torch.cuda.empty_cache()
+    phase_lm_agree(torch, SSM_ARCH, "lm-ssm-agree")
+    ssm_decode_check(torch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[lm-ssm] phase wall {wall:.1f} s; on {card}")
+    return launches, dict(stats, phase_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -3662,10 +3895,14 @@ def lm_time_rows(torch):
     """Row 6 of the kernel table: the kernel, its plain version and
     scaled_dot_product_attention at the cell's attention shape (bfloat16,
     causal, 32 query heads on 4 KV heads)."""
+    return [flash_time_row(torch, LM_BATCH, LM_PROMPT, 32, 4, 64)]
+
+
+def flash_time_row(torch, B, S, H, Hk, D):
+    """flash_attention's timing row at (B, S, H, Hk, D), bfloat16 causal."""
     from repro_torch.kernels import ref
     flash_attention = import_module("repro_torch.kernels.flash_attention")
 
-    B, S, H, Hk, D = LM_BATCH, LM_PROMPT, 32, 4, 64
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda").to(torch.bfloat16)
                for h in (H, Hk, Hk))
@@ -3673,15 +3910,15 @@ def lm_time_rows(torch):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hk * D)
     n_flops = 4 * S * S * D * B * H // 2
-    return [("flash_attention", "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:84",
-             lambda: flash_attention.flash_attention_kernel(q, k, v, causal=True),
-             lambda: ref.flash_attention_ref(q, k, v, causal=True),
-             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-             n_bytes, n_flops,
-             f"B={B} S={S} H={H} Hk={Hk} D={D} bf16 causal; bound at the bf16 tensor-core "
-             f"peak (the f32 CUDA-core peak would give "
-             f"{n_flops / F32_FLOPS_PER_S * 1e3:.3f} ms)", BF16_FLOPS_PER_S)]
+    return ("flash_attention", "cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:84",
+            lambda: flash_attention.flash_attention_kernel(q, k, v, causal=True),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True),
+            lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+            n_bytes, n_flops,
+            f"B={B} S={S} H={H} Hk={Hk} D={D} bf16 causal; bound at the bf16 tensor-core "
+            f"peak (the f32 CUDA-core peak would give "
+            f"{n_flops / F32_FLOPS_PER_S * 1e3:.3f} ms)", BF16_FLOPS_PER_S)
 
 
 def tg_time_row(torch, ds, flush, launches, card):
@@ -3740,21 +3977,22 @@ def tg_time_row(torch, ds, flush, launches, card):
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
-def profile_prefill(torch, lm_inputs, card):
-    """Device time by kernel over one prefill of the serving cell (with
-    its splice into the full cache), then over 8 decode steps after it."""
+def profile_prefill(torch, lm_inputs, card, label: str = "lm"):
+    """Device time by kernel over one prefill of a serving cell (with its
+    splice into the full cache), then over 8 decode steps after it."""
     from repro_torch.launch.serve import decode, greedy, prefill
 
     cfg, params, prompts = lm_inputs
     (logits, cache), rows, busy, wall_ms = device_profile(
-        torch, "lm prefill", lambda: prefill(params, cfg, prompts, LM_PROMPT + LM_TOKENS))
-    report_profile("lm prefill", f"{LM_BATCH} x {LM_PROMPT} tokens", rows, busy, wall_ms, card)
+        torch, f"{label} prefill", lambda: prefill(params, cfg, prompts, LM_PROMPT + LM_TOKENS))
+    report_profile(f"{label} prefill", f"{LM_BATCH} x {LM_PROMPT} tokens", rows, busy, wall_ms,
+                   card)
     tok = greedy(logits)
     del logits
     decode(params, cfg, cache, LM_PROMPT, tok, 2)       # warm-up
     _, rows, busy, wall_ms = device_profile(
-        torch, "lm decode", lambda: decode(params, cfg, cache, LM_PROMPT, tok, 8))
-    report_profile("lm decode", "8 steps at batch 8", rows, busy, wall_ms, card)
+        torch, f"{label} decode", lambda: decode(params, cfg, cache, LM_PROMPT, tok, 8))
+    report_profile(f"{label} decode", "8 steps at batch 8", rows, busy, wall_ms, card)
 
 
 def sparse_time_rows(torch, inp):
@@ -3935,15 +4173,9 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs, ds):
             + serve_time_rows(torch, sparse_inputs["serve"]))
     rows = [(*row, F32_FLOPS_PER_S) for row in rows] + lm_time_rows(torch)
     table = []
-    for name, route, source, replaces, kern, plain, library, n_bytes, n_flops, note, peak in rows:
-        ms = time_ms(torch, kern, flush)
-        plain_ms = time_ms(torch, plain, flush)
-        library_ms = None if library is None else time_ms(torch, library, flush)
-        b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
-        print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
-              f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}"
-              + (f"; {note}" if note else ""))
+    for row in rows:
+        name, route, source, replaces = row[:4]
+        ms, plain_ms, library_ms, b_ms, b_by = time_row(torch, row, flush, card)
         if name in ("gram_cd", "blocked_cd"):
             modes = blocked_cycle_modes(G, 16).flatten().tolist()
             print(f"[times] {name}: {ms * 1e6 / F:.1f} ns per coordinate step (kernel time / "
@@ -3957,6 +4189,22 @@ def phase_times(torch, gen, errs, launches, card, sparse_inputs, ds):
     spmv_extra_times(torch, sparse_inputs, flush, card)
     serve_extra_times(torch, sparse_inputs["serve"], flush, card)
     return table
+
+
+def time_row(torch, row, flush, card, label=None):
+    """Time one row of the kernel table (the kernel, its plain version and
+    the library call, CUDA events) and print it beside its bound. Returns
+    (ms, plain ms, library ms or None, bound ms, bound kind)."""
+    name, _, _, _, kern, plain, library, n_bytes, n_flops, note, peak = row
+    ms = time_ms(torch, kern, flush)
+    plain_ms = time_ms(torch, plain, flush)
+    library_ms = None if library is None else time_ms(torch, library, flush)
+    b_ms, b_by = bound_ms(n_bytes, n_flops, peak)
+    print(f"[times] {label or name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+          f"{b_ms:.5f} ms ({b_by}: {n_bytes} bytes, {n_flops} operations) on {card}"
+          + (f"; {note}" if note else ""))
+    return ms, plain_ms, library_ms, b_ms, b_by
 
 
 def _kind(name: str) -> str:
@@ -3977,7 +4225,7 @@ def _kind(name: str) -> str:
                               "nvjet")):
         return "matmul (cuBLAS)"
     if "sort" in low:
-        return "sorts (slab layout)"
+        return "sorts (slab layout, MoE routing)"
     if "memcpy" in low or "memset" in low:
         return "copies"
     return "other elementwise and reductions (line search, gathers, norms, RoPE, casts)"
@@ -4413,6 +4661,17 @@ def main() -> int:
           f"{lm_train['loss0']:.4f} -> {lm_train['loss_last']:.4f}, {lm_train['peak_gb']:.2f} GB "
           f"peak, on {card}")
     phase_profile(torch, ds, lam, cell, sparse_lam, card, lm_inputs)
+    del lm_inputs                     # the LM zoo cells need the room
+    moe_launches, moe = phase_lm_moe(torch, card)
+    ssm_launches, ssm = phase_lm_ssm(torch, card)
+    for row in table:
+        if row["name"] == "flash_attention":
+            row["launches"] += moe_launches + ssm_launches
+    for tag, arch, r in (("moe", f"{MOE_ARCH} ({MOE_LAYERS} layers)", moe),
+                         ("ssm", SSM_ARCH, ssm)):
+        print(f"[times] lm {tag} serve {arch}: prefill {r['prefill_ms']:.2f} ms, decode "
+              f"{r['decode_ms_per_token']:.3f} ms/token, whole generation {r['wall_s']:.3f} s, "
+              f"{r['peak_gb']:.2f} GB peak, phase {r['phase_s']:.1f} s, on {card}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(card)

@@ -1,8 +1,8 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Model and problem configurations, the counterpart of
 ``repro/configs/base.py``: the LM zoo's :class:`ModelConfig` with its
-sub-configs (plain data; the port runs the dense attention architectures
-so far) and the paper's :class:`GLMConfig`."""
+sub-configs (plain data; the port runs the dense attention, MoE and
+Mamba2 SSD architectures so far) and the paper's :class:`GLMConfig`."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
@@ -47,6 +47,12 @@ class SSMConfig:
     conv_width: int = 4
     chunk_size: int = 256            # SSD chunked scan length
     ngroups: int = 1                 # B/C groups (GVA-style)
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -172,6 +178,13 @@ class ModelConfig:
         from repro_torch.models.params import count_params_analytic
 
         return count_params_analytic(self)
+
+    def num_active_params(self) -> int:
+        """Parameters a token passes through: the routed expert stacks
+        weighted by top_k / num_experts."""
+        from repro_torch.models.params import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
 
     # ----- reduced variants ---------------------------------------------
     def smoke(self) -> "ModelConfig":

@@ -1,21 +1,24 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Serving launcher (counterpart of ``repro/launch/serve.py`` and
 ``examples/serve_lm.py``): batched prefill, then greedy decode against the
-KV cache, on one card.
+cache, on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch 8 --prompt-len 2048 --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --batch 2 --prompt-len 128 --tokens 8 --device cpu
 
-Prefill runs each layer's attention through the flash-attention kernel
+``--arch`` takes every registered LM: tinyllama-1.1b (dense),
+llama4-scout-17b-a16e (MoE) and mamba2-2.7b (SSD). Prefill runs each
+attention layer through the flash-attention kernel
 (``use_flash_kernel=True``; the prompt length must be a multiple of 128
-for the shape to qualify), its cache is spliced into the front of a
-full-length cache, and each decode step writes one slot in place. The
-loop reads nothing back per token: the argmax stays on the device,
-``cache_index`` is a Python int, and the generated tokens are fetched
-once at the end. Weights and prompts are drawn from one
-``torch.Generator`` seeded with 0. Sharded serving (the reference's
+for the shape to qualify; a model with no attention layer never reaches
+it), its cache is spliced into a full-length cache (K/V at the front,
+SSM states whole), and each decode step writes one slot (or the SSM
+states) in place. The loop reads nothing back per token: the argmax
+stays on the device, ``cache_index`` is a Python int, and the generated
+tokens are fetched once at the end. Weights and prompts are drawn from
+one ``torch.Generator`` seeded with 0. Sharded serving (the reference's
 ``--mesh``) is not ported yet.
 """
 from __future__ import annotations
@@ -34,13 +37,25 @@ from repro_torch.train import make_prefill_step, make_serve_step
 
 
 def _splice(full, prefill_cache):
-    """Copy each layer's prefill K/V into the front of the full-length
-    cache, in place: the sequence is axis 2 of each segment's stacked
-    (L, B, S, Hk, Dh) tensors. Returns ``full``."""
+    """Copy the prefill cache into the full-length cache, in place, leaf by
+    leaf as the reference splices: a leaf of the same shape (an SSM
+    layer's conv and SSD states) is copied whole; otherwise the prefill
+    leaf is written at the front of its first differing axis (the
+    sequence axis 2 of the stacked (L, B, S, Hk, Dh) K and V). Returns
+    ``full``."""
+    def per_leaf(f, p):
+        if isinstance(f, dict):
+            for k in f:
+                per_leaf(f[k], p[k])
+            return
+        if f.shape == p.shape:
+            f.copy_(p)
+            return
+        axis = next(i for i, (a, b) in enumerate(zip(f.shape, p.shape)) if a != b)
+        f.narrow(axis, 0, p.shape[axis]).copy_(p)
+
     for seg, pre in zip(full["segments"], prefill_cache["segments"]):
-        for name in ("k", "v"):
-            src = pre["kv"][name]
-            seg["kv"][name].narrow(2, 0, src.shape[2]).copy_(src)
+        per_leaf(seg, pre)
     return full
 
 

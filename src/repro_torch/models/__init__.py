@@ -1,7 +1,9 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """The LM zoo of the port (counterpart of ``repro.models``): the dense
-attention architectures (GQA, RoPE, RMSNorm, SwiGLU) for training,
-prefill and decode. MoE, SSM, MLA, hybrid and enc-dec layers are not
+attention architectures (GQA, RoPE, RMSNorm, SwiGLU), the MoE layer
+(``models/moe.py``: top-k routing with capacity, a shared expert, the
+auxiliary losses) and the Mamba2 SSD block (``models/ssm.py``), for
+training, prefill and decode. MLA, hybrid and enc-dec layers are not
 ported yet."""
 from repro_torch.models.params import (count_params_analytic, forward, init_cache, init_params,
                                        is_encdec, param_bytes)

@@ -38,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, frozen
+from repro_torch.models.layers import apply_rope, dense_init, frozen, matmul
 
 NEG_INF = -1e30
 Q_CHUNK = 1024          # query-chunk length for full-sequence attention
@@ -184,9 +184,9 @@ def attention_forward(
     dh = cfg.resolved_head_dim(d_model)
     h, hk = cfg.num_heads, cfg.num_kv_heads
 
-    q = (x @ p.wq).reshape(b, s, h, dh)
-    k = (x @ p.wk).reshape(b, s, hk, dh)
-    v = (x @ p.wv).reshape(b, s, hk, dh)
+    q = matmul(x, p.wq).reshape(b, s, h, dh)
+    k = matmul(x, p.wk).reshape(b, s, hk, dh)
+    v = matmul(x, p.wv).reshape(b, s, hk, dh)
     if cfg.use_mrope:
         raise NotImplementedError("M-RoPE is not ported yet")
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -198,7 +198,7 @@ def attention_forward(
         out = sdpa(q, k, v, positions, positions, scale=scale, causal=causal,
                    window=window, use_flash_kernel=use_flash_kernel)
         new_cache = {"k": k, "v": v} if mode == "prefill" else None
-        return out.reshape(b, s, h * dh) @ p.wo, new_cache
+        return matmul(out.reshape(b, s, h * dh), p.wo), new_cache
 
     if mode != "decode":
         raise ValueError(f"unknown mode {mode!r}")
@@ -210,4 +210,4 @@ def attention_forward(
     k_pos = torch.arange(cache_len, dtype=torch.int32, device=x.device)[None, :]
     out = sdpa(q, ck, cv, positions, k_pos, scale=scale, causal=True, window=window,
                kv_limit=cache_index)
-    return out.reshape(b, s, h * dh) @ p.wo, {"k": ck, "v": cv}
+    return matmul(out.reshape(b, s, h * dh), p.wo), {"k": ck, "v": cv}

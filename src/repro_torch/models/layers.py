@@ -5,7 +5,9 @@ Layers that hold weights are ``nn.Module`` parameter holders whose
 attributes carry the reference's parameter names (``scale``, ``w_gate``,
 ...), so a reference parameter tree maps onto them name for name
 (``api/convert.py``). Projections keep the reference's (d_in, d_out)
-layout and ``x @ W``. The forward functions take the module as the
+layout and go through :func:`matmul`, which promotes mixed operand types
+as ``jnp``'s ``x @ W`` does (bfloat16 weights under float32 activations
+compute in float32). The forward functions take the module as the
 reference's functions take their parameter dict.
 
 Initialisers draw from an explicit ``torch.Generator`` as the reference
@@ -46,6 +48,13 @@ def frozen(t):
     return nn.Parameter(t, requires_grad=False)
 
 
+def matmul(x, w):
+    """``x @ w`` in ``torch.promote_types(x.dtype, w.dtype)``, as ``jnp``
+    promotes a mixed product; operands of one type go in as they are."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -70,6 +79,15 @@ def apply_norm(p, x, *, eps: float = 1e-5):
     return (y * p.scale.to(torch.float32)).to(x.dtype)
 
 
+def gated_rmsnorm(scale, x, gate, *, eps: float = 1e-5):
+    """Mamba2's norm: RMSNorm(x * silu(gate)) in float32 (norm before the
+    gate off), cast back to x's type. Its eps is its own, not the model's
+    ``norm_eps``."""
+    xf = x.to(torch.float32) * nn.functional.silu(gate.to(torch.float32))
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU)
 # ---------------------------------------------------------------------------
@@ -91,7 +109,7 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, *, device="cpu") -> MLP:
 
 
 def apply_mlp(p, x):
-    return (nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    return matmul(nn.functional.silu(matmul(x, p.w_gate)) * matmul(x, p.w_up), p.w_down)
 
 
 # ---------------------------------------------------------------------------

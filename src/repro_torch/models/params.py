@@ -1,7 +1,7 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Model API and parameter counting (counterpart of
-``repro/models/params.py``), for the decoder-only LMs the port runs;
-encoder-decoder models are not ported yet.
+``repro/models/params.py``), for the decoder-only LMs the port runs
+(dense, MoE and Mamba2 SSD); encoder-decoder models are not ported yet.
 
 Counts come from the port's own shapes: the model is built on the meta
 device, which allocates nothing.
@@ -45,10 +45,28 @@ def forward(params: LM, inputs, cfg: ModelConfig, **kw):
 # ---------------------------------------------------------------------------
 
 
-def count_params_analytic(cfg: ModelConfig) -> int:
-    """Exact parameter count of the port's model, built on the meta device."""
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count of the port's model, built on the meta device.
+    ``active_only`` weights the routed expert stacks by top_k / num_experts
+    (not the shared expert), as the reference does for 6 N_active D model
+    FLOPs: each of its stacked (L, ...) leaves is weighted and truncated to
+    an integer, so the port sums a segment's layers per leaf first."""
     _check_decoder_only(cfg)
-    return sum(p.numel() for p in LM(cfg, None, device="meta").parameters())
+    frac = cfg.moe.top_k / cfg.moe.num_experts if (cfg.moe.enabled and active_only) else 1.0
+    leaves: dict = {}
+    for name, p in LM(cfg, None, device="meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] == "segments":
+            parts = parts[:2] + parts[3:]          # layer j of segment i -> segment i's leaf
+        key = ".".join(parts)
+        leaves[key] = leaves.get(key, 0) + p.numel()
+    total = 0
+    for name, size in leaves.items():
+        parts = name.split(".")
+        is_expert = (parts[-1] in ("w_gate", "w_up", "w_down") and "moe" in parts
+                     and "shared" not in parts)
+        total += int(size * (frac if is_expert else 1.0))
+    return total
 
 
 def param_bytes(cfg: ModelConfig) -> int:

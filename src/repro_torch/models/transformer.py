@@ -1,16 +1,19 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Causal LM (counterpart of ``repro/models/transformer.py``) for the dense
-attention architectures.
+attention, MoE and Mamba2 SSD architectures.
 
 Layers are grouped into *segments* of consecutive identical kinds, as in
 the reference. The reference stacks each segment's parameters on a
 leading layer axis and runs ``lax.scan``; the port holds each segment as
 an ``nn.ModuleList`` and loops over it. The decode cache keeps the
-reference's stacked layout, one (n_layers, B, L, Hk, Dh) tensor per
-segment for K and for V, and each layer writes its slice in place.
-Frontends, multi-token prediction, the long-context modes, LayerNorm,
-the GELU MLP, QKV bias and float16 are not ported yet: a config that
-selects one raises when the model is built.
+reference's stacked layout, each leaf with a leading layer axis (K and V
+(n_layers, B, L, Hk, Dh); an SSM layer's conv (n_layers, B, W - 1,
+conv_dim) and SSD (n_layers, B, H, P, N) states), and each layer writes
+its slice in place. The layers' auxiliary outputs (the MoE losses) are
+summed over layers, as the reference sums them. Frontends, multi-token
+prediction, the hybrid blocks, the long-context modes, LayerNorm, the
+GELU MLP, QKV bias and float16 are not ported yet: a config that selects
+one raises when the model is built.
 
 Remat: in ``"train"`` mode with ``cfg.remat`` set, while autograd records
 and a weight requires grad, each layer runs under
@@ -124,9 +127,18 @@ def lm_hidden(
 ):
     """The layers and the final norm: returns (final-norm hidden states
     (B, S, d_model) in the compute type, new_cache). Prefill's new cache
-    holds the prompt's K/V stacked per segment; decode writes ``cache`` in
-    place and returns it. The sparse probe (``core/probe.py``) reads these
-    states; :func:`lm_forward` adds the head."""
+    holds the prompt's K/V (and SSM states) stacked per segment; decode
+    writes ``cache`` in place and returns it. The sparse probe
+    (``core/probe.py``) reads these states; :func:`lm_forward` adds the
+    head."""
+    h, new_cache, _ = _hidden(params, inputs, cfg, mode=mode, cache=cache,
+                              cache_index=cache_index, use_flash_kernel=use_flash_kernel)
+    return h, new_cache
+
+
+def _hidden(params: LM, inputs, cfg: ModelConfig, *, mode, cache, cache_index,
+            use_flash_kernel):
+    """:func:`lm_hidden`, and the layers' aux outputs summed over layers."""
     if any(inputs.get(k) is not None for k in ("patch_embeds", "frame_embeds")):
         raise NotImplementedError("frontend embeddings are not ported yet")
     cdtype = dtype_of(cfg.compute_dtype)
@@ -145,6 +157,7 @@ def lm_hidden(
     remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
              and any(p.requires_grad for p in params.parameters()))
     new_seg_caches = []
+    aux_total: Dict[str, torch.Tensor] = {}
     for i, (kind, _) in enumerate(segments_of(cfg)):
         seg_cache = cache["segments"][i] if cache is not None else None
         new_layers = []
@@ -153,12 +166,15 @@ def lm_hidden(
             kw = dict(cfg=cfg, kind=kind, positions=positions, mode=mode, cache=c_l,
                       cache_index=cache_index, window=window, use_flash_kernel=use_flash_kernel)
             if remat:
-                # no ported layer draws random numbers: no RNG state to replay
-                x, new_c, _ = checkpoint(layer_forward, layer, x, use_reentrant=False,
-                                         preserve_rng_state=False, **kw)
+                # no ported layer draws random numbers: no RNG state to replay;
+                # the layer's aux comes out of the checkpoint with its output
+                x, new_c, aux = checkpoint(layer_forward, layer, x, use_reentrant=False,
+                                           preserve_rng_state=False, **kw)
             else:
-                x, new_c, _ = layer_forward(layer, x, **kw)
+                x, new_c, aux = layer_forward(layer, x, **kw)
             new_layers.append(new_c)
+            for k, v in aux.items():
+                aux_total[k] = aux_total[k] + v if k in aux_total else v
         if mode == "prefill":
             new_seg_caches.append(_tree_stack(new_layers))
         elif mode == "decode":
@@ -166,7 +182,7 @@ def lm_hidden(
 
     h = apply_norm(params.final_norm, x, eps=cfg.norm_eps)
     new_cache = {"segments": new_seg_caches} if mode in ("prefill", "decode") else None
-    return h, new_cache
+    return h, new_cache, aux_total
 
 
 def lm_head(params: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -186,7 +202,8 @@ def lm_forward(
     use_flash_kernel: bool = False,
 ):
     """Returns (logits (B, S, padded_vocab) in the compute type, new_cache,
-    aux): :func:`lm_hidden` then :func:`lm_head`."""
-    h, new_cache = lm_hidden(params, inputs, cfg, mode=mode, cache=cache,
-                             cache_index=cache_index, use_flash_kernel=use_flash_kernel)
-    return lm_head(params, h, cfg), new_cache, {}
+    aux): :func:`lm_hidden` then :func:`lm_head`; aux holds the MoE
+    layers' losses summed over layers (empty for a model without MoE)."""
+    h, new_cache, aux = _hidden(params, inputs, cfg, mode=mode, cache=cache,
+                                cache_index=cache_index, use_flash_kernel=use_flash_kernel)
+    return lm_head(params, h, cfg), new_cache, aux

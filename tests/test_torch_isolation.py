@@ -249,3 +249,32 @@ def test_mesh_slice_entry_points_raise_without_a_card(entry):
     }[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+def test_the_walk_covers_the_moe_and_ssm_slice():
+    """The MoE layer, the Mamba2 block and their configs are walked, and
+    importing them loads neither JAX nor the reference."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    names = ("models/moe.py", "models/ssm.py", "configs/llama4_scout_17b_a16e.py",
+             "configs/mamba2_2p7b.py")
+    for name in names:
+        assert name in checked, name
+    mods = [f"repro_torch.{n[:-3].replace('/', '.')}" for n in names]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-2.7b"])
+def test_moe_and_ssm_serving_raises_without_a_card(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch, "--smoke"])
