@@ -4,7 +4,7 @@ webspam-shaped cell, from the root of a checkout on a machine with a card:
     python3 scripts/chip_phase9a.py [--p-log2 16]
 
 Builds the kernels, fits the cell on a (1, 16) ``DevMesh`` (phase 7's
-sequential fit), its first 3 path points (phase 8's head) and the
+sequential fit), its first ``PM_PATH_LEN`` path points (phase 8's head) and the
 epsilon cell's sequential fit (phase 4's), then runs
 ``chip_smoke.phase_process_mesh`` against them: about 1.5 minutes at
 2^16 features, the machine's wait not counted."""
@@ -45,7 +45,7 @@ opts = DGLMNETOptions(cycle_mode="sequential", **cs.SPARSE_OPTS)
 mesh = make_dev_mesh(1, 16)
 LogisticL1(replace(opts, max_iters=1), mesh=mesh).fit(SlabDesign(rows, vals, n), y, lam)
 res = LogisticL1(opts, mesh=mesh).fit(SlabDesign(rows, vals, n), y, lam)
-path = LogisticL1(opts, mesh=mesh).path(SlabDesign(rows, vals, n), y, path_len=3)
+path = LogisticL1(opts, mesh=mesh).path(SlabDesign(rows, vals, n), y, path_len=cs.PM_PATH_LEN)
 print(f"[phase9a] DevMesh fit {res.n_iters} iters f {res.f}; path f {list(path.f)}")
 gen = torch.Generator(device="cuda").manual_seed(0)
 ds = make_glm_dataset(GLM_EPSILON, gen, device="cuda")

@@ -76,8 +76,9 @@ def _as_tensor(a) -> torch.Tensor:
 def lm_params_from_reference(params, cfg, *, device=DEFAULT_DEVICE):
     """The port's LM (``models.transformer.LM``) holding the reference's
     weights: ``params["segments"][i][...][j]`` becomes layer j of segment
-    i; every other leaf maps by name. Raises on a missing, extra or
-    mis-shaped leaf."""
+    i, and the MTP head's one-layer stack ``params["mtp"]["layer"][...][0]``
+    its ``mtp.layer``; every other leaf maps by name. Raises on a missing,
+    extra or mis-shaped leaf."""
     from repro_torch.models.transformer import LM
 
     lm = LM(cfg, None, device=resolve_device(device))
@@ -88,6 +89,8 @@ def lm_params_from_reference(params, cfg, *, device=DEFAULT_DEVICE):
             node, layer = params, None
             if parts[0] == "segments":
                 node, layer, parts = params["segments"][int(parts[1])], int(parts[2]), parts[3:]
+            elif parts[:2] == ["mtp", "layer"]:
+                node, layer, parts = params["mtp"]["layer"], 0, parts[2:]   # (1, ...) leaves
             for key in parts:
                 node = node[key]
             t = _as_tensor(node if layer is None else np.asarray(node)[layer])

@@ -1,8 +1,9 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Model and problem configurations, the counterpart of
 ``repro/configs/base.py``: the LM zoo's :class:`ModelConfig` with its
-sub-configs (plain data; the port runs the dense attention, MoE and
-Mamba2 SSD architectures so far) and the paper's :class:`GLMConfig`."""
+sub-configs (plain data; the port runs the dense attention with or
+without QKV bias, MLA, MoE, multi-token prediction and Mamba2 SSD
+architectures so far) and the paper's :class:`GLMConfig`."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace

@@ -69,7 +69,7 @@ from repro_torch.data.byfeature import to_by_feature, to_slab_buckets
 from repro_torch.data.residency import stream_floor
 from repro_torch.data.synthetic import make_glm_dataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import is_process_mesh, make_dev_mesh
+from repro_torch.launch.mesh import is_process_mesh, make_dev_mesh, world_scope
 from repro_torch.launch.serve_glm import say, trim_rows
 from repro_torch.launch.world import add_world_args, mesh_from_args, spawn_world
 from repro_torch.obs import observe
@@ -358,6 +358,13 @@ def main(argv=None):
         args.n, args.p, args.path_len = min(args.n, 128), min(args.p, 64), \
             min(args.path_len, 3)
     dev = resolve_device(args.device)
+    with world_scope():
+        _chaos(args, dev)
+
+
+def _chaos(args, dev) -> None:
+    """The rank's run (or the one process's): the mesh, then the
+    scenarios, checked against their counters under ``--trace``."""
     mesh = mesh_from_args(args, dev)
     if mesh is not None:
         dev = mesh.device

@@ -36,6 +36,11 @@ per rank and raises if two ranks share one; ``"gloo"`` serves ranks on
 the CPU and ranks that share one card. Nothing switches backends, and
 nothing moves to the CPU when a card is missing.
 
+A world that :func:`init_process_mesh` or :func:`make_production_mesh`
+starts is the caller's to end: :func:`world_scope` around a rank's work
+tears the process group down, so that no rank exits with a live gloo or
+NCCL group (whose threads abort the process at exit).
+
 The reference's TPU roofline constants have no counterpart here: the
 card's rates live with the measurements (``chip_smoke.py``).
 """
@@ -45,6 +50,7 @@ import os
 import socket
 import zlib
 from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Dict, Optional, Sequence, Tuple
@@ -351,12 +357,47 @@ def make_process_mesh(data: int, model: int, *, backend: str, device=DEFAULT_DEV
     return mesh
 
 
+def _close_world(*, barrier: bool) -> None:
+    """End this process's ``torch.distributed`` world, if it has one:
+    the barrier if asked, then ``destroy_process_group``."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    try:
+        if barrier:
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@contextmanager
+def world_scope():
+    """Run the block, then end the world it started (a world initialised
+    before the block is its owner's to end): a barrier, so that no rank
+    leaves while another still talks to it, and ``destroy_process_group``
+    when the block returns; ``destroy_process_group`` alone when it raises
+    (its peers may never reach a barrier), and the error goes on."""
+    import torch.distributed as dist
+
+    owned = not (dist.is_available() and dist.is_initialized())
+    try:
+        yield
+    except BaseException:
+        if owned:
+            _close_world(barrier=False)
+        raise
+    if owned:
+        _close_world(barrier=True)
+
+
 def init_process_mesh(data: int, model: int, *, backend: str, init_method: str,
                       world_size: int, rank: int, device=DEFAULT_DEVICE,
                       timeout: timedelta = DEFAULT_TIMEOUT, pod: int = 1) -> ProcMesh:
     """``init_process_group`` with the caller's backend, address, world
     size and rank, then :func:`make_process_mesh`. Under NCCL the caller
-    sets each rank's card first (``torch.cuda.set_device``)."""
+    sets each rank's card first (``torch.cuda.set_device``). The caller
+    ends the world (:func:`world_scope`)."""
     import torch.distributed as dist
 
     dist.init_process_group(backend, init_method=init_method, world_size=world_size,

@@ -8,18 +8,22 @@ cache, on one card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --batch 2 --prompt-len 128 --tokens 8 --device cpu
 
-``--arch`` takes every registered LM: tinyllama-1.1b (dense),
-llama4-scout-17b-a16e (MoE) and mamba2-2.7b (SSD). Prefill runs each
-attention layer through the flash-attention kernel
-(``use_flash_kernel=True``; the prompt length must be a multiple of 128
-for the shape to qualify; a model with no attention layer never reaches
-it), its cache is spliced into a full-length cache (K/V at the front,
-SSM states whole), and each decode step writes one slot (or the SSM
-states) in place. The loop reads nothing back per token: the argmax
-stays on the device, ``cache_index`` is a Python int, and the generated
-tokens are fetched once at the end. Weights and prompts are drawn from
-one ``torch.Generator`` seeded with 0. Sharded serving (the reference's
-``--mesh``) is not ported yet.
+``--arch`` takes every registered LM: tinyllama-1.1b, qwen2.5-3b,
+qwen1.5-4b and internlm2-1.8b (dense; the two qwen with QKV bias),
+llama4-scout-17b-a16e (MoE), deepseek-v3-671b (MLA and MoE; its 61
+layers are about 1.37 TB of bf16 weights, so one card serves it only
+with ``--smoke``, and ``chip_smoke.py`` phase 18 a depth cut) and
+mamba2-2.7b (SSD). Prefill runs each attention layer whose shape
+qualifies through the flash-attention kernel (``use_flash_kernel=True``;
+the prompt length must be a multiple of 128; MLA, whose q and v heads
+differ in width, and a model with no attention layer never reach it),
+its cache is spliced into a full-length cache (K/V, or MLA's latent and
+rope key, at the front; SSM states whole), and each decode step writes
+one slot (or the SSM states) in place. The loop reads nothing back per
+token: the argmax stays on the device, ``cache_index`` is a Python int,
+and the generated tokens are fetched once at the end. Weights and
+prompts are drawn from one ``torch.Generator`` seeded with 0. Sharded
+serving (the reference's ``--mesh``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -41,8 +45,9 @@ def _splice(full, prefill_cache):
     leaf as the reference splices: a leaf of the same shape (an SSM
     layer's conv and SSD states) is copied whole; otherwise the prefill
     leaf is written at the front of its first differing axis (the
-    sequence axis 2 of the stacked (L, B, S, Hk, Dh) K and V). Returns
-    ``full``."""
+    sequence axis 2 of the stacked (L, B, S, Hk, Dh) K and V, and of an
+    MLA segment's (L, B, S, kv_lora) latent and (L, B, S, rope_dim) rope
+    key). Returns ``full``."""
     def per_leaf(f, p):
         if isinstance(f, dict):
             for k in f:

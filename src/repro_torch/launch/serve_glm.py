@@ -55,6 +55,7 @@ from repro_torch.configs.base import GLMConfig
 from repro_torch.core import engine
 from repro_torch.data.synthetic import make_glm_dataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import world_scope
 from repro_torch.launch.world import add_world_args, is_rank_zero, mesh_from_args, spawn_world
 from repro_torch.obs import observe
 from repro_torch.obs import trace as obs_trace
@@ -165,6 +166,13 @@ def main(argv=None):
         args.n, args.p, args.path_len = min(args.n, 256), min(args.p, 128), \
             min(args.path_len, 4)
     dev = resolve_device(args.device)
+    with world_scope():
+        _serve(args, dev)
+
+
+def _serve(args, dev) -> None:
+    """The rank's run (or the one process's): the mesh, then :func:`_run`,
+    traced under ``--trace``."""
     mesh = mesh_from_args(args, dev)
     if mesh is not None:
         dev = mesh.device

@@ -12,7 +12,12 @@ A launcher given ``--backend`` runs as one rank of a world:
 / ``--rank`` when they are given (the ranks that ``--spawn N`` starts get
 them), else from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``). Under NCCL each rank
-takes the card of its ``LOCAL_RANK``. :func:`spawn_world` starts the N
+takes the card of its ``LOCAL_RANK``. A launcher runs its rank's work
+inside :func:`world_scope` (``launch.mesh``), which ends the world with
+a barrier and ``destroy_process_group`` (without the barrier when the
+rank raises), so that no rank exits with a live process group (its
+threads would abort the process at exit).
+:func:`spawn_world` starts the N
 ranks as subprocesses of this Python with a ``file://`` store in a
 temporary directory (no TCP port), waits for them under a deadline, and
 kills and reaps every one of them whatever happens.

@@ -5,8 +5,10 @@
 - ``"moe"``: pre-norm attention plus the MoE FFN (and its shared expert);
 - ``"ssm"``: the Mamba2 block (norm, SSD, residual).
 
-The hybrid kinds (zamba2's shared attention block) raise "not ported
-yet"."""
+The attention of both attention kinds is GQA (with QKV bias where the
+config has it) or MLA (``cfg.attention.use_mla``), with the matching
+decode cache. The hybrid kinds (zamba2's shared attention block) raise
+"not ported yet"."""
 from __future__ import annotations
 
 from typing import Optional

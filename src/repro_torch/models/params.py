@@ -1,7 +1,8 @@
 # allow[dead-code]: PyTorch port of repro, driven by chip_smoke.py and tests/test_torch_*.py
 """Model API and parameter counting (counterpart of
 ``repro/models/params.py``), for the decoder-only LMs the port runs
-(dense, MoE and Mamba2 SSD); encoder-decoder models are not ported yet.
+(dense with or without QKV bias, MLA, MoE with its MTP head, Mamba2
+SSD); encoder-decoder models are not ported yet.
 
 Counts come from the port's own shapes: the model is built on the meta
 device, which allocates nothing.
@@ -50,7 +51,12 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     ``active_only`` weights the routed expert stacks by top_k / num_experts
     (not the shared expert), as the reference does for 6 N_active D model
     FLOPs: each of its stacked (L, ...) leaves is weighted and truncated to
-    an integer, so the port sums a segment's layers per leaf first."""
+    an integer, so the port sums a segment's layers per leaf first (the
+    MTP head's layer is a leaf of its own, as the reference's one-layer
+    stack is). The port counts in Python integers; the reference's int32
+    ``jnp.prod`` wraps on a leaf of 2^31 elements or more (the stacked
+    expert leaves of llama4 and deepseek-v3), so its number then differs
+    from the port's by a multiple of 2^32."""
     _check_decoder_only(cfg)
     frac = cfg.moe.top_k / cfg.moe.num_experts if (cfg.moe.enabled and active_only) else 1.0
     leaves: dict = {}

@@ -9,11 +9,16 @@ an ``nn.ModuleList`` and loops over it. The decode cache keeps the
 reference's stacked layout, each leaf with a leading layer axis (K and V
 (n_layers, B, L, Hk, Dh); an SSM layer's conv (n_layers, B, W - 1,
 conv_dim) and SSD (n_layers, B, H, P, N) states), and each layer writes
-its slice in place. The layers' auxiliary outputs (the MoE losses) are
-summed over layers, as the reference sums them. Frontends, multi-token
-prediction, the hybrid blocks, the long-context modes, LayerNorm, the
-GELU MLP, QKV bias and float16 are not ported yet: a config that selects
-one raises when the model is built.
+its slice in place (an MLA layer's latent (n_layers, B, L, kv_lora) and
+rope key (n_layers, B, L, rope_dim)). The layers' auxiliary outputs (the
+MoE losses) are summed over layers, as the reference sums them.
+DeepSeek-V3's multi-token prediction head (``mtp``: a (2d, d) projection
+of the final hidden state beside the next token's embedding, then one
+more layer of the last kind) runs in ``"train"`` mode only and adds
+``aux["mtp_logits"]``, as in the reference. Frontends, the hybrid
+blocks, the long-context modes, LayerNorm, the GELU MLP and float16 are
+not ported yet: a config that selects one raises when the model is
+built.
 
 Remat: in ``"train"`` mode with ``cfg.remat`` set, while autograd records
 and a weight requires grad, each layer runs under
@@ -71,15 +76,27 @@ def _tree_stack(trees):
 # ---------------------------------------------------------------------------
 
 
+class MTP(nn.Module):
+    """The multi-token prediction head: ``proj`` (2 d_model, d_model) and
+    ``layer``, one layer of the config's last kind."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, *, device="cpu"):
+        super().__init__()
+        self.proj = frozen(dense_init(gen, 2 * cfg.d_model, cfg.d_model, dtype, device=device))
+        self.layer = init_layer(gen, cfg, cfg.layer_kinds()[-1], dtype, device=device)
+
+
 class LM(nn.Module):
     """Parameters of a causal LM under the reference's names: ``embed``
     (padded_vocab, d), ``final_norm``, ``lm_head`` (d, padded_vocab) unless
-    tied, and ``segments[i][j]``, layer j of segment i."""
+    tied, ``segments[i][j]``, layer j of segment i, and ``mtp`` when the
+    config has ``mtp_depth`` (drawn after every other weight, as the
+    reference draws it)."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], *, device="cpu"):
         super().__init__()
-        if cfg.frontend.kind != "none" or cfg.mtp_depth:
-            raise NotImplementedError("frontends and multi-token prediction are not ported yet")
+        if cfg.frontend.kind != "none":
+            raise NotImplementedError("frontends are not ported yet")
         if cfg.norm != "rmsnorm" or cfg.act != "silu":
             raise NotImplementedError(f"norm {cfg.norm!r} with activation {cfg.act!r} is not "
                                       f"ported yet (only rmsnorm with silu)")
@@ -92,6 +109,8 @@ class LM(nn.Module):
         self.segments = nn.ModuleList(
             nn.ModuleList(init_layer(gen, cfg, kind, dtype, device=device) for _ in range(n))
             for kind, n in segments_of(cfg))
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, gen, dtype, device=device)
 
 
 def init_lm_params(gen: Optional[torch.Generator], cfg: ModelConfig, *, device="cpu") -> LM:
@@ -136,6 +155,10 @@ def lm_hidden(
     return h, new_cache
 
 
+def _positions(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
+
+
 def _hidden(params: LM, inputs, cfg: ModelConfig, *, mode, cache, cache_index,
             use_flash_kernel):
     """:func:`lm_hidden`, and the layers' aux outputs summed over layers."""
@@ -151,7 +174,7 @@ def _hidden(params: LM, inputs, cfg: ModelConfig, *, mode, cache, cache_index,
             raise ValueError("decode needs a cache_index")
         positions = torch.full((b, s), cache_index, dtype=torch.int32, device=tokens.device)
     else:
-        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
+        positions = _positions(b, s, tokens.device)
 
     window = cfg.attention.sliding_window
     remat = (cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -191,6 +214,20 @@ def lm_head(params: LM, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ head.to(h.dtype)
 
 
+def mtp_logits(params: LM, tokens, h, cfg: ModelConfig):
+    """The MTP head's logits (B, S, padded_vocab), predicting token t + 2:
+    the final-norm hidden states ``h`` beside the embedding of the next
+    token (the last row's wraps round, as the reference's ``jnp.roll``),
+    through ``mtp.proj`` and ``mtp.layer`` in train mode (its aux
+    dropped, no window, no flash kernel), then the LM head, unnormed."""
+    b, s = tokens.shape
+    emb_next = nn.functional.embedding(torch.roll(tokens, -1, dims=1), params.embed)
+    x = torch.cat([h, emb_next.to(h.dtype)], dim=-1) @ params.mtp.proj.to(h.dtype)
+    x, _, _ = layer_forward(params.mtp.layer, x, cfg=cfg, kind=cfg.layer_kinds()[-1],
+                            positions=_positions(b, s, tokens.device), mode="train")
+    return lm_head(params, x, cfg)
+
+
 def lm_forward(
     params: LM,
     inputs: Dict[str, Any],
@@ -203,7 +240,13 @@ def lm_forward(
 ):
     """Returns (logits (B, S, padded_vocab) in the compute type, new_cache,
     aux): :func:`lm_hidden` then :func:`lm_head`; aux holds the MoE
-    layers' losses summed over layers (empty for a model without MoE)."""
+    layers' losses summed over layers (empty for a model without MoE) and,
+    in ``"train"`` mode with S > 1 and ``cfg.mtp_depth``, the MTP head's
+    ``"mtp_logits"`` (:func:`mtp_logits`)."""
     h, new_cache, aux = _hidden(params, inputs, cfg, mode=mode, cache=cache,
                                 cache_index=cache_index, use_flash_kernel=use_flash_kernel)
-    return lm_head(params, h, cfg), new_cache, aux
+    logits = lm_head(params, h, cfg)
+    tokens = inputs["tokens"]
+    if cfg.mtp_depth and mode == "train" and tokens.shape[1] > 1:
+        aux["mtp_logits"] = mtp_logits(params, tokens, h, cfg)
+    return logits, new_cache, aux

@@ -19,22 +19,25 @@ from repro_torch.optim import Stacked, make_optimizer
 
 def param_tree(lm) -> dict:
     """The model's weights in the reference's tree: ``embed``,
-    ``final_norm``, ``lm_head`` and ``segments[i][name...]``, the last a
-    :class:`Stacked` of layer j's tensor for each j of segment i."""
+    ``final_norm``, ``lm_head``, ``segments[i][name...]``, the last a
+    :class:`Stacked` of layer j's tensor for each j of segment i, and the
+    MTP head's ``mtp["proj"]`` and ``mtp["layer"][name...]``, each of the
+    latter a :class:`Stacked` of its one layer (the reference's (1, ...)
+    leaves)."""
     tree: dict = {}
     segments = [{} for _ in lm.segments]
     for name, p in lm.named_parameters():
         parts = name.split(".")
         if parts[0] == "segments":
-            node, parts = segments[int(parts[1])], parts[3:]
-            for key in parts[:-1]:
-                node = node.setdefault(key, {})
-            node.setdefault(parts[-1], []).append(p)
-            continue
-        node = tree
+            node, parts, stacked = segments[int(parts[1])], parts[3:], True
+        else:
+            node, stacked = tree, parts[:2] == ["mtp", "layer"]
         for key in parts[:-1]:
             node = node.setdefault(key, {})
-        node[parts[-1]] = p
+        if stacked:
+            node.setdefault(parts[-1], []).append(p)
+        else:
+            node[parts[-1]] = p
 
     def stack(node):
         if isinstance(node, dict):
@@ -42,6 +45,8 @@ def param_tree(lm) -> dict:
         return Stacked(node)
 
     tree["segments"] = [stack(seg) for seg in segments]
+    if "mtp" in tree:
+        tree["mtp"]["layer"] = stack(tree["mtp"]["layer"])
     return tree
 
 

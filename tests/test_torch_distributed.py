@@ -142,146 +142,147 @@ from repro_torch.core.distributed import (fit_distributed, fit_distributed_spars
                                           make_dglmnet_step, make_dglmnet_step_sparse)
 from repro_torch.core.regpath import regularization_path_distributed
 from repro_torch.data.byfeature import to_by_feature, to_slab_buckets
-from repro_torch.launch.mesh import init_process_mesh
+from repro_torch.launch.mesh import init_process_mesh, world_scope
 
-rank, world, data, work = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-a = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/inputs.npz").items()}
-mesh = init_process_mesh(data, 4, backend="gloo", init_method=f"file://{work}/store{world}",
-                         world_size=world, rank=rank, device="cpu",
-                         timeout=timedelta(seconds=120))
-out, msgs = {}, {}
-if data == 2:
-    # the reference's guards (tests/test_distributed.py test_divisibility_and_slab_guards)
-    cases = {
-        "dense_n": lambda: fit_distributed(torch.ones(17, 16), torch.ones(17), 1.0, mesh),
-        "slab_dp": lambda: fit_distributed_sparse(torch.zeros(16, 3, 4, dtype=torch.int32),
-                                                  torch.zeros(16, 3, 4), torch.ones(18), 1.0,
-                                                  mesh),
-        "slab_shape": lambda: fit_distributed_sparse(torch.zeros(16, 2, 4, dtype=torch.int32),
-                                                     torch.zeros(16, 3, 4), torch.ones(18),
-                                                     1.0, mesh),
-        "slab_n": lambda: fit_distributed_sparse(torch.zeros(16, 2, 4, dtype=torch.int32),
-                                                 torch.zeros(16, 2, 4), torch.ones(17), 1.0,
-                                                 mesh),
-        "slab_rows": lambda: fit_distributed_sparse(torch.full((16, 2, 4), 30, dtype=torch.int32),
-                                                    torch.zeros(16, 2, 4), torch.ones(18), 1.0,
-                                                    mesh),
-        # a design holds its piece cut at its own tile
-        "tile_dense": lambda: LogisticL1(DGLMNETOptions(tile=8, max_iters=2), mesh=mesh,
-                                         device="cpu").fit(
-            ShardedDesign(DenseDesign(a["dX"]), mesh, tile=16), a["dy"], 1.0),
-        "tile_slab": lambda: ShardedDesign(SlabDesign(a["srows2"], a["svals2"], len(a["sy"])),
-                                           mesh, tile=16)._mesh_state(8),
-    }
-    for name, fn in cases.items():
-        try:
-            fn()
-            msgs[name] = None
-        except ValueError as e:
-            msgs[name] = str(e)
-mesh.reset_stats()
-engine.host_syncs = 0
-res = fit_distributed(a["dX"], a["dy"], float(a["dlam"]), mesh, opts=DGLMNETOptions(**DENSE))
-out.update(dense_beta=res.beta.numpy(), dense_hist=np.asarray(res.objective_history),
-           dense_alpha=np.asarray(res.alpha_history), dense_m=res.m.numpy())
-msgs["dense"] = dict(iters=res.n_iters, ok=res.ok, reads=engine.host_syncs, stats=mesh.stats())
-dp = data
-mesh.reset_stats()
-engine.host_syncs = 0
-res = fit_distributed_sparse(a[f"srows{dp}"], a[f"svals{dp}"], a["sy"], float(a["slam"]), mesh,
-                             opts=DGLMNETOptions(**SLAB), densify=False)
-out.update(slab_beta=res.beta.numpy(), slab_hist=np.asarray(res.objective_history))
-msgs["slab"] = dict(iters=res.n_iters, ok=res.ok, reads=engine.host_syncs, stats=mesh.stats())
-if data == 2:
-    # the same problem as nnz-bucketed slabs (power-of-two K classes)
-    buckets = to_slab_buckets(to_by_feature(a["sX"]), 2)
-    engine.host_syncs = 0
-    res = LogisticL1(DGLMNETOptions(**SLAB), mesh=mesh, device="cpu").fit(
-        buckets, a["sy"], float(a["slam"]), densify=False)
-    out.update(bucketed_beta=res.beta.numpy(), bucketed_hist=np.asarray(res.objective_history))
-    msgs["bucketed"] = dict(iters=res.n_iters, ok=res.ok, reads=engine.host_syncs,
-                            classes=len(buckets.buckets))
-    b, m, f, alpha = make_dglmnet_step(mesh, DGLMNETOptions(**DENSE))(
-        a["dX"], a["dy"], a["step_beta"], (a["dX"] @ a["step_beta"])[mesh.data_rank * 512:
-                                                                    (mesh.data_rank + 1) * 512],
-        float(a["dlam"]))
-    out.update(step_beta_new=b.numpy(), step_f=f.numpy(), step_alpha=alpha.numpy())
-    sb = torch.zeros(a["sX"].shape[1])
-    sb[:8] = 0.1
-    b, m, f, alpha = make_dglmnet_step_sparse(mesh, DGLMNETOptions(**SSTEP))(
-        a["srows2"], a["svals2"], a["sy"], sb,
-        (a["sX"] @ sb)[mesh.data_rank * 1024:(mesh.data_rank + 1) * 1024], float(a["slam"]))
-    out.update(sstep_beta_new=b.numpy(), sstep_f=f.numpy(), sstep_alpha=alpha.numpy())
-    # count the path's restricted solves (their iterations) and screens
-    solves, screens = [], [0]
-    real_solve, real_screen = estimator._solve, ShardedDesign._screen_abs_work
-
-    def counted_solve(*args, **kw):
-        res = real_solve(*args, **kw)
-        solves.append(res.n_iters)
-        return res
-
-    def counted_screen(self, *args, **kw):
-        screens[0] += 1
-        return real_screen(self, *args, **kw)
-
-    estimator._solve, ShardedDesign._screen_abs_work = counted_solve, counted_screen
+with world_scope():
+    rank, world, data, work = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    a = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/inputs.npz").items()}
+    mesh = init_process_mesh(data, 4, backend="gloo", init_method=f"file://{work}/store{world}",
+                             world_size=world, rank=rank, device="cpu",
+                             timeout=timedelta(seconds=120))
+    out, msgs = {}, {}
+    if data == 2:
+        # the reference's guards (tests/test_distributed.py test_divisibility_and_slab_guards)
+        cases = {
+            "dense_n": lambda: fit_distributed(torch.ones(17, 16), torch.ones(17), 1.0, mesh),
+            "slab_dp": lambda: fit_distributed_sparse(torch.zeros(16, 3, 4, dtype=torch.int32),
+                                                      torch.zeros(16, 3, 4), torch.ones(18), 1.0,
+                                                      mesh),
+            "slab_shape": lambda: fit_distributed_sparse(torch.zeros(16, 2, 4, dtype=torch.int32),
+                                                         torch.zeros(16, 3, 4), torch.ones(18),
+                                                         1.0, mesh),
+            "slab_n": lambda: fit_distributed_sparse(torch.zeros(16, 2, 4, dtype=torch.int32),
+                                                     torch.zeros(16, 2, 4), torch.ones(17), 1.0,
+                                                     mesh),
+            "slab_rows": lambda: fit_distributed_sparse(torch.full((16, 2, 4), 30, dtype=torch.int32),
+                                                        torch.zeros(16, 2, 4), torch.ones(18), 1.0,
+                                                        mesh),
+            # a design holds its piece cut at its own tile
+            "tile_dense": lambda: LogisticL1(DGLMNETOptions(tile=8, max_iters=2), mesh=mesh,
+                                             device="cpu").fit(
+                ShardedDesign(DenseDesign(a["dX"]), mesh, tile=16), a["dy"], 1.0),
+            "tile_slab": lambda: ShardedDesign(SlabDesign(a["srows2"], a["svals2"], len(a["sy"])),
+                                               mesh, tile=16)._mesh_state(8),
+        }
+        for name, fn in cases.items():
+            try:
+                fn()
+                msgs[name] = None
+            except ValueError as e:
+                msgs[name] = str(e)
     mesh.reset_stats()
-    pts = regularization_path_distributed((a["prows"], a["pvals"]), a["py"], mesh,
-                                          path_len=PATH_LEN, opts=DGLMNETOptions(**PATH))
-    stats = mesh.stats()
-    estimator._solve, ShardedDesign._screen_abs_work = real_solve, real_screen
-    out.update(path_lams=np.asarray(pts.lambdas), path_f=np.asarray(pts.f),
-               path_nnz=np.asarray([pt.nnz for pt in pts]),
-               path_active=np.asarray([pt.screen["active"] for pt in pts]),
-               path_status=np.asarray(list(pts.statuses)), path_betas=pts.betas.numpy())
-    msgs["path"] = dict(stats=stats, solves=solves, screens=screens[0], points=len(pts))
-    # the dense design's screened path (its restricted designs routed by columns)
-    pts = LogisticL1(DGLMNETOptions(**PATH), mesh=mesh, device="cpu").path(
-        a["pX"], a["py"], path_len=3)
-    out.update(dpath_f=np.asarray(pts.f), dpath_betas=pts.betas.numpy())
-# the split: each rank's piece of each layout, and what crosses to build
-# a restricted design
-n_s = len(a["sy"])
-pieces = {"flat": ShardedDesign(SlabDesign(a[f"srows{dp}"], a[f"svals{dp}"], n_s), mesh, tile=16),
-          "bucketed": as_design(to_slab_buckets(to_by_feature(a["sX"]), dp), n=n_s, mesh=mesh,
-                                tile=16)}
-split = {"coords": [mesh.data_rank, mesh.model_rank]}
-for tag, des in pieces.items():
-    st = des._mesh_state(16)
-    split[tag] = dict(nbytes=des.slab_nbytes(), resident=des.residency_stats()[16]["total_bytes"],
-                      lo=st.lo, p_work=st.p_work)
-dense = ShardedDesign(DenseDesign(a["dX"]), mesh, tile=16)
-split["dense_shape"] = list(dense.inner.X.shape)
-flat = pieces["flat"]
-st = flat._mesh_state(16)
-mask = torch.zeros(st.p_work, dtype=torch.bool)
-mask[:96:3] = True
-mesh.reset_stats()
-sub, _, _ = flat._gather_work(torch.zeros(st.p_work), mask, 64, st.k_max, tile=16)
-(rows_g, vals_g, _), = sub.inner.pieces
-split["gather"] = dict(stats=mesh.stats(), lo=sub.inner.lo, k=st.k_max)
-out.update(gather_rows=rows_g.numpy(), gather_vals=vals_g.numpy())
-# the Gram tile of features [16, 48) (across model ranks), on every rank
-n_d = len(a["dy"])
-wv, rv = 0.25 + (torch.arange(n_d) % 7) / 10.0, torch.sin(torch.arange(n_d, dtype=torch.float32))
-rows = slice(mesh.data_rank * (n_d // data), (mesh.data_rank + 1) * (n_d // data))
-G, c = dense.gram_tile(wv[rows], rv[rows], 16, 32)
-out.update(gram_dense_G=G.numpy(), gram_dense_c=c.numpy())
-sdes = ShardedDesign(SlabDesign.from_dense(a["dX"], data), mesh, tile=16)
-G, c = sdes.gram_tile(wv[rows], rv[rows], 16, 32)
-out.update(gram_slab_G=G.numpy(), gram_slab_c=c.numpy())
-# decision_function: every rank scores all 64 rows
-est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
-beta = torch.from_numpy(out["dense_beta"])
-out.update(score_dense=est.decision_function(a["dX"][:64], beta=beta).numpy(),
-           score_slab=est.decision_function(SlabDesign.from_dense(a["dX"][:64], data),
-                                            beta=beta).numpy())
-msgs["split"] = split
-np.savez(f"{work}/w{world}_r{rank}.npz", **out)
-with open(f"{work}/w{world}_r{rank}.json", "w") as fh:
-    json.dump(msgs, fh)
-print("OK rank", rank)
+    engine.host_syncs = 0
+    res = fit_distributed(a["dX"], a["dy"], float(a["dlam"]), mesh, opts=DGLMNETOptions(**DENSE))
+    out.update(dense_beta=res.beta.numpy(), dense_hist=np.asarray(res.objective_history),
+               dense_alpha=np.asarray(res.alpha_history), dense_m=res.m.numpy())
+    msgs["dense"] = dict(iters=res.n_iters, ok=res.ok, reads=engine.host_syncs, stats=mesh.stats())
+    dp = data
+    mesh.reset_stats()
+    engine.host_syncs = 0
+    res = fit_distributed_sparse(a[f"srows{dp}"], a[f"svals{dp}"], a["sy"], float(a["slam"]), mesh,
+                                 opts=DGLMNETOptions(**SLAB), densify=False)
+    out.update(slab_beta=res.beta.numpy(), slab_hist=np.asarray(res.objective_history))
+    msgs["slab"] = dict(iters=res.n_iters, ok=res.ok, reads=engine.host_syncs, stats=mesh.stats())
+    if data == 2:
+        # the same problem as nnz-bucketed slabs (power-of-two K classes)
+        buckets = to_slab_buckets(to_by_feature(a["sX"]), 2)
+        engine.host_syncs = 0
+        res = LogisticL1(DGLMNETOptions(**SLAB), mesh=mesh, device="cpu").fit(
+            buckets, a["sy"], float(a["slam"]), densify=False)
+        out.update(bucketed_beta=res.beta.numpy(), bucketed_hist=np.asarray(res.objective_history))
+        msgs["bucketed"] = dict(iters=res.n_iters, ok=res.ok, reads=engine.host_syncs,
+                                classes=len(buckets.buckets))
+        b, m, f, alpha = make_dglmnet_step(mesh, DGLMNETOptions(**DENSE))(
+            a["dX"], a["dy"], a["step_beta"], (a["dX"] @ a["step_beta"])[mesh.data_rank * 512:
+                                                                        (mesh.data_rank + 1) * 512],
+            float(a["dlam"]))
+        out.update(step_beta_new=b.numpy(), step_f=f.numpy(), step_alpha=alpha.numpy())
+        sb = torch.zeros(a["sX"].shape[1])
+        sb[:8] = 0.1
+        b, m, f, alpha = make_dglmnet_step_sparse(mesh, DGLMNETOptions(**SSTEP))(
+            a["srows2"], a["svals2"], a["sy"], sb,
+            (a["sX"] @ sb)[mesh.data_rank * 1024:(mesh.data_rank + 1) * 1024], float(a["slam"]))
+        out.update(sstep_beta_new=b.numpy(), sstep_f=f.numpy(), sstep_alpha=alpha.numpy())
+        # count the path's restricted solves (their iterations) and screens
+        solves, screens = [], [0]
+        real_solve, real_screen = estimator._solve, ShardedDesign._screen_abs_work
+
+        def counted_solve(*args, **kw):
+            res = real_solve(*args, **kw)
+            solves.append(res.n_iters)
+            return res
+
+        def counted_screen(self, *args, **kw):
+            screens[0] += 1
+            return real_screen(self, *args, **kw)
+
+        estimator._solve, ShardedDesign._screen_abs_work = counted_solve, counted_screen
+        mesh.reset_stats()
+        pts = regularization_path_distributed((a["prows"], a["pvals"]), a["py"], mesh,
+                                              path_len=PATH_LEN, opts=DGLMNETOptions(**PATH))
+        stats = mesh.stats()
+        estimator._solve, ShardedDesign._screen_abs_work = real_solve, real_screen
+        out.update(path_lams=np.asarray(pts.lambdas), path_f=np.asarray(pts.f),
+                   path_nnz=np.asarray([pt.nnz for pt in pts]),
+                   path_active=np.asarray([pt.screen["active"] for pt in pts]),
+                   path_status=np.asarray(list(pts.statuses)), path_betas=pts.betas.numpy())
+        msgs["path"] = dict(stats=stats, solves=solves, screens=screens[0], points=len(pts))
+        # the dense design's screened path (its restricted designs routed by columns)
+        pts = LogisticL1(DGLMNETOptions(**PATH), mesh=mesh, device="cpu").path(
+            a["pX"], a["py"], path_len=3)
+        out.update(dpath_f=np.asarray(pts.f), dpath_betas=pts.betas.numpy())
+    # the split: each rank's piece of each layout, and what crosses to build
+    # a restricted design
+    n_s = len(a["sy"])
+    pieces = {"flat": ShardedDesign(SlabDesign(a[f"srows{dp}"], a[f"svals{dp}"], n_s), mesh, tile=16),
+              "bucketed": as_design(to_slab_buckets(to_by_feature(a["sX"]), dp), n=n_s, mesh=mesh,
+                                    tile=16)}
+    split = {"coords": [mesh.data_rank, mesh.model_rank]}
+    for tag, des in pieces.items():
+        st = des._mesh_state(16)
+        split[tag] = dict(nbytes=des.slab_nbytes(), resident=des.residency_stats()[16]["total_bytes"],
+                          lo=st.lo, p_work=st.p_work)
+    dense = ShardedDesign(DenseDesign(a["dX"]), mesh, tile=16)
+    split["dense_shape"] = list(dense.inner.X.shape)
+    flat = pieces["flat"]
+    st = flat._mesh_state(16)
+    mask = torch.zeros(st.p_work, dtype=torch.bool)
+    mask[:96:3] = True
+    mesh.reset_stats()
+    sub, _, _ = flat._gather_work(torch.zeros(st.p_work), mask, 64, st.k_max, tile=16)
+    (rows_g, vals_g, _), = sub.inner.pieces
+    split["gather"] = dict(stats=mesh.stats(), lo=sub.inner.lo, k=st.k_max)
+    out.update(gather_rows=rows_g.numpy(), gather_vals=vals_g.numpy())
+    # the Gram tile of features [16, 48) (across model ranks), on every rank
+    n_d = len(a["dy"])
+    wv, rv = 0.25 + (torch.arange(n_d) % 7) / 10.0, torch.sin(torch.arange(n_d, dtype=torch.float32))
+    rows = slice(mesh.data_rank * (n_d // data), (mesh.data_rank + 1) * (n_d // data))
+    G, c = dense.gram_tile(wv[rows], rv[rows], 16, 32)
+    out.update(gram_dense_G=G.numpy(), gram_dense_c=c.numpy())
+    sdes = ShardedDesign(SlabDesign.from_dense(a["dX"], data), mesh, tile=16)
+    G, c = sdes.gram_tile(wv[rows], rv[rows], 16, 32)
+    out.update(gram_slab_G=G.numpy(), gram_slab_c=c.numpy())
+    # decision_function: every rank scores all 64 rows
+    est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
+    beta = torch.from_numpy(out["dense_beta"])
+    out.update(score_dense=est.decision_function(a["dX"][:64], beta=beta).numpy(),
+               score_slab=est.decision_function(SlabDesign.from_dense(a["dX"][:64], data),
+                                                beta=beta).numpy())
+    msgs["split"] = split
+    np.savez(f"{work}/w{world}_r{rank}.npz", **out)
+    with open(f"{work}/w{world}_r{rank}.json", "w") as fh:
+        json.dump(msgs, fh)
+    print("OK rank", rank)
 """
 
 
@@ -344,8 +345,8 @@ def runs(tmp_path_factory):
                        JAX_PLATFORMS="cpu"), work, "ref")
     worlds = {}
     for world, data in ((8, 2), (2, 1)):
-        worlds[world] = _launch([[sys.executable, "-c", _settings(RANK), str(r), str(world),
-                                  str(data), work] for r in range(world)],
+        worlds[world] = _launch([[sys.executable, "-c", _settings(RANK), str(r),
+                                  str(world), str(data), work] for r in range(world)],
                                 _env(OMP_NUM_THREADS="1"), work, f"w{world}")
     _wait([ref, *worlds.values()], time.monotonic() + DEADLINE)
     for tag, procs in (("ref", ref), *((f"w{w}", p) for w, p in worlds.items())):

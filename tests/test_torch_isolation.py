@@ -270,8 +270,40 @@ def test_the_walk_covers_the_moe_and_ssm_slice():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+def test_the_walk_covers_the_qkv_bias_and_mla_slice():
+    """The four configs of the QKV-bias and MLA slice, the attention module
+    that holds MLA and the world's teardown are walked, and importing them
+    loads neither JAX nor the reference."""
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES}
+    names = ("configs/qwen2_5_3b.py", "configs/qwen1_5_4b.py", "configs/internlm2_1p8b.py",
+             "configs/deepseek_v3_671b.py", "models/attention.py", "models/transformer.py",
+             "launch/mesh.py", "launch/world.py")
+    for name in names:
+        assert name in checked, name
+    mods = [f"repro_torch.{n[:-3].replace('/', '.')}" for n in names]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in ('jax', 'triton', 'repro') if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mamba2-2.7b"])
 def test_moe_and_ssm_serving_raises_without_a_card(arch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.launch import serve
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", arch, "--smoke"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen1.5-4b", "internlm2-1.8b",
+                                  "deepseek-v3-671b"])
+def test_qkv_bias_and_mla_serving_raises_without_a_card(arch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from repro_torch.launch import serve

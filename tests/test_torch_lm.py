@@ -34,7 +34,7 @@ from repro.train import make_prefill_step as j_make_prefill_step
 from repro.train import make_serve_step as j_make_serve_step
 from repro_torch.api import lm_params_from_reference
 from repro_torch.configs import MODEL_CONFIGS, get_config
-from repro_torch.configs.base import AttentionConfig, HybridConfig
+from repro_torch.configs.base import AttentionConfig, FrontendStub, HybridConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.models import count_params_analytic, forward, init_cache, init_params, param_bytes
@@ -110,15 +110,19 @@ def test_apply_norm(eps):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("option", ["layernorm", "gelu", "qkv_bias", "hybrid"])
+@pytest.mark.parametrize("option", ["layernorm", "gelu", "frontend", "hybrid"])
 def test_unported_options_raise_at_build(option):
     """Config options no registered architecture uses raise when the model
-    is built, not later in forward."""
+    is built, not later in forward. (QKV bias, which this case list held
+    until it was ported, is held against the reference in
+    ``tests/test_torch_qkv_bias.py``.)"""
     cfg = MODEL_CONFIGS[ARCH].smoke()
     cfg = {
         "layernorm": lambda: replace(cfg, norm="layernorm"),
         "gelu": lambda: replace(cfg, act="gelu"),
-        "qkv_bias": lambda: replace(cfg, attention=replace(cfg.attention, qkv_bias=True)),
+        "frontend": lambda: replace(cfg, frontend=FrontendStub(kind="vision_patches",
+                                                               tokens_per_item=16,
+                                                               embed_dim=128)),
         "hybrid": lambda: replace(cfg, arch_type="hybrid", hybrid=HybridConfig(attn_every=2)),
     }[option]()
     with pytest.raises(NotImplementedError, match="not ported yet"):

@@ -174,159 +174,160 @@ from repro_torch.api import LogisticL1, PathResult, ShardedDesign, SlabDesign, a
 from repro_torch.core import engine
 from repro_torch.core.dglmnet import DGLMNETOptions
 from repro_torch.data.byfeature import SlabBuckets
-from repro_torch.launch.mesh import init_process_mesh, make_dev_mesh
+from repro_torch.launch.mesh import init_process_mesh, make_dev_mesh, world_scope
 from repro_torch.resilience import EngineFault, FaultPlan, InjectedKill, inject_faults
 from repro_torch.serve import PathScorer, PathStore, RequestBatcher, hash_token
 
-rank, work = int(sys.argv[1]), sys.argv[2]
-a = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/inputs.npz").items()}
-mesh = init_process_mesh(2, 4, backend="gloo", init_method=f"file://{work}/store8",
-                         world_size=8, rank=rank, device="cpu", timeout=timedelta(seconds=120))
-out, msgs = {}, {"coords": [mesh.data_rank, mesh.model_rank]}
-n, p = len(a["by"]), a["brows"].shape[0]
-W = p // WIDTH
+with world_scope():
+    rank, work = int(sys.argv[1]), sys.argv[2]
+    a = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/inputs.npz").items()}
+    mesh = init_process_mesh(2, 4, backend="gloo", init_method=f"file://{work}/store8",
+                             world_size=8, rank=rank, device="cpu", timeout=timedelta(seconds=120))
+    out, msgs = {}, {"coords": [mesh.data_rank, mesh.model_rank]}
+    n, p = len(a["by"]), a["brows"].shape[0]
+    W = p // WIDTH
 
-def buckets():
-    return SlabBuckets(tuple((a["brows"][i * WIDTH:(i + 1) * WIDTH],
-                              a["bvals"][i * WIDTH:(i + 1) * WIDTH],
-                              torch.arange(i * WIDTH, (i + 1) * WIDTH)) for i in range(W)),
-                       n_loc=n // 2, p=p)
+    def buckets():
+        return SlabBuckets(tuple((a["brows"][i * WIDTH:(i + 1) * WIDTH],
+                                  a["bvals"][i * WIDTH:(i + 1) * WIDTH],
+                                  torch.arange(i * WIDTH, (i + 1) * WIDTH)) for i in range(W)),
+                           n_loc=n // 2, p=p)
 
-tile = STREAM["tile"]
-sizing = as_design(buckets(), mesh=mesh, tile=tile)
-piece = sizing.inner
-pieces = [piece.piece_nbytes(r, mesh.model_ranks) for r in range(mesh.model_ranks)]
-budget = max(max(x + y for x, y in zip(nb, nb[1:])) for nb in pieces)
-msgs["stream"] = {"pieces": len(piece.pieces), "budget": budget}
-# a budget below some rank's floor raises on every rank, before any collective
-try:
-    as_design(buckets(), mesh=mesh, tile=tile, device_budget_bytes=budget - 1)._mesh_state(tile)
-    msgs["stream"]["floor_error"] = None
-except ValueError as e:
-    msgs["stream"]["floor_error"] = str(e)
-for mode in ("sequential", "blocked"):
-    opts = DGLMNETOptions(cycle_mode=mode, block=2, **STREAM)
-    for kind in ("resident", "streamed"):
-        des = as_design(buckets(), mesh=mesh, tile=tile,
-                        device_budget_bytes=budget if kind == "streamed" else None)
-        est = LogisticL1(opts, mesh=mesh, device="cpu")
-        engine.host_syncs = 0
-        res = est.fit(des, a["by"], float(a["blam"]), densify=False)
-        fit_reads = engine.host_syncs
-        engine.host_syncs = 0
-        pts = est.path(des, a["by"], path_len=PATH_LEN)
-        tag = f"{mode}_{kind}"
-        out.update({f"{tag}_fit_beta": res.beta.numpy(),
-                    f"{tag}_fit_hist": np.asarray(res.objective_history),
-                    f"{tag}_path_betas": pts.betas.numpy(), f"{tag}_path_f": np.asarray(pts.f),
-                    f"{tag}_path_lams": np.asarray(pts.lambdas)})
-        msgs[tag] = dict(fit_reads=fit_reads, path_reads=engine.host_syncs,
-                         stats=des.residency_stats()[tile], ok=bool(pts.all_ok))
-
-# checkpoint-resume, one shared directory, per-rank slots
-design = SlabDesign(a["brows"], a["bvals"], n)
-est = LogisticL1(DGLMNETOptions(**STREAM), mesh=mesh, device="cpu")
-engine.host_syncs = 0
-full = est.path(design, a["by"], path_len=PATH_LEN)
-plain_reads = engine.host_syncs
-d = f"{work}/progress"
-engine.host_syncs = 0
-ckpt = est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1,
-                resume_from=f"{work}/ckpt_full")
-msgs["ckpt_reads"] = [plain_reads, engine.host_syncs]
-out["ckpt_betas"] = ckpt.betas.numpy()
-killed = None
-try:
-    with inject_faults(FaultPlan(kill_after_points=2)):
-        est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1, resume_from=d)
-except InjectedKill as e:
-    killed = str(e)
-msgs["killed"] = killed
-msgs["slots"] = sorted(os.listdir(f"{d}/rank-{rank:05d}"))
-engine.host_syncs = 0
-resumed = est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1, resume_from=d)
-msgs["resume_reads"] = engine.host_syncs
-out.update(full_betas=full.betas.numpy(), full_f=np.asarray(full.f),
-           resumed_betas=resumed.betas.numpy(), resumed_f=np.asarray(resumed.f))
-msgs["resumed_screen"] = resumed.screen == full.screen
-# rank 0 lost its newest slot (killed between its own saves): every rank
-# resumes from the newest point they all hold, and solves the last point again
-if rank == 0:
-    shutil.rmtree(f"{d}/rank-00000/point-{PATH_LEN - 1:05d}")
-resumed2 = est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1, resume_from=d)
-out["resumed2_betas"] = resumed2.betas.numpy()
-# a mismatched directory raises on every rank
-errs = {}
-for name, fn in {
-        "grid": lambda: est.path(design, a["by"], path_len=3, checkpoint_every=1, resume_from=d),
-        "foreign": lambda: est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1,
-                                    resume_from=f"{work}/single_r{rank}"),
-        "dev_mesh": lambda: LogisticL1(DGLMNETOptions(**STREAM), mesh=make_dev_mesh(1, 4, device="cpu"),
-                                       device="cpu").path(SlabDesign(a["brows"][:, :1], a["bvals"][:, :1], n // 2),
-                                                          a["by"][:n // 2], path_len=PATH_LEN,
-                                                          resume_from=d)}.items():
-    if name == "foreign":
-        one = LogisticL1(DGLMNETOptions(**STREAM), mesh=make_dev_mesh(1, 4, device="cpu"), device="cpu")
-        try:
-            with inject_faults(FaultPlan(kill_after_points=1)):
-                one.path(SlabDesign(a["brows"][:, :1], a["bvals"][:, :1], n // 2), a["by"][:n // 2],
-                         path_len=PATH_LEN, checkpoint_every=1, resume_from=f"{work}/single_r{rank}")
-        except InjectedKill:
-            pass
+    tile = STREAM["tile"]
+    sizing = as_design(buckets(), mesh=mesh, tile=tile)
+    piece = sizing.inner
+    pieces = [piece.piece_nbytes(r, mesh.model_ranks) for r in range(mesh.model_ranks)]
+    budget = max(max(x + y for x, y in zip(nb, nb[1:])) for nb in pieces)
+    msgs["stream"] = {"pieces": len(piece.pieces), "budget": budget}
+    # a budget below some rank's floor raises on every rank, before any collective
     try:
-        fn()
-        errs[name] = None
+        as_design(buckets(), mesh=mesh, tile=tile, device_budget_bytes=budget - 1)._mesh_state(tile)
+        msgs["stream"]["floor_error"] = None
     except ValueError as e:
-        errs[name] = str(e)
-msgs["resume_errors"] = errs
+        msgs["stream"]["floor_error"] = str(e)
+    for mode in ("sequential", "blocked"):
+        opts = DGLMNETOptions(cycle_mode=mode, block=2, **STREAM)
+        for kind in ("resident", "streamed"):
+            des = as_design(buckets(), mesh=mesh, tile=tile,
+                            device_budget_bytes=budget if kind == "streamed" else None)
+            est = LogisticL1(opts, mesh=mesh, device="cpu")
+            engine.host_syncs = 0
+            res = est.fit(des, a["by"], float(a["blam"]), densify=False)
+            fit_reads = engine.host_syncs
+            engine.host_syncs = 0
+            pts = est.path(des, a["by"], path_len=PATH_LEN)
+            tag = f"{mode}_{kind}"
+            out.update({f"{tag}_fit_beta": res.beta.numpy(),
+                        f"{tag}_fit_hist": np.asarray(res.objective_history),
+                        f"{tag}_path_betas": pts.betas.numpy(), f"{tag}_path_f": np.asarray(pts.f),
+                        f"{tag}_path_lams": np.asarray(pts.lambdas)})
+            msgs[tag] = dict(fit_reads=fit_reads, path_reads=engine.host_syncs,
+                             stats=des.residency_stats()[tile], ok=bool(pts.all_ok))
 
-# nan-inject (the chaos drill) on the dense cell
-est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
-healthy = est.fit(a["bX"], a["by"], float(a["blam"]))
-with inject_faults(FaultPlan(engine=EngineFault("margins", at_iter=3), engine_fires=1)):
-    res = est.fit(a["bX"], a["by"], float(a["blam"]))
-nb = len(res.objective_history)
-again = est.fit(a["bX"], a["by"], float(a["blam"]))
-msgs["nan"] = dict(status=res.status_name, iters=res.n_iters,
-                   prefix=res.objective_history == healthy.objective_history[:nb],
-                   finite=bool(torch.isfinite(res.beta).all()),
-                   again=bool(torch.equal(again.beta, healthy.beta)), healthy_f=healthy.f)
-out["nan_beta"] = res.beta.numpy()
+    # checkpoint-resume, one shared directory, per-rank slots
+    design = SlabDesign(a["brows"], a["bvals"], n)
+    est = LogisticL1(DGLMNETOptions(**STREAM), mesh=mesh, device="cpu")
+    engine.host_syncs = 0
+    full = est.path(design, a["by"], path_len=PATH_LEN)
+    plain_reads = engine.host_syncs
+    d = f"{work}/progress"
+    engine.host_syncs = 0
+    ckpt = est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1,
+                    resume_from=f"{work}/ckpt_full")
+    msgs["ckpt_reads"] = [plain_reads, engine.host_syncs]
+    out["ckpt_betas"] = ckpt.betas.numpy()
+    killed = None
+    try:
+        with inject_faults(FaultPlan(kill_after_points=2)):
+            est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1, resume_from=d)
+    except InjectedKill as e:
+        killed = str(e)
+    msgs["killed"] = killed
+    msgs["slots"] = sorted(os.listdir(f"{d}/rank-{rank:05d}"))
+    engine.host_syncs = 0
+    resumed = est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1, resume_from=d)
+    msgs["resume_reads"] = engine.host_syncs
+    out.update(full_betas=full.betas.numpy(), full_f=np.asarray(full.f),
+               resumed_betas=resumed.betas.numpy(), resumed_f=np.asarray(resumed.f))
+    msgs["resumed_screen"] = resumed.screen == full.screen
+    # rank 0 lost its newest slot (killed between its own saves): every rank
+    # resumes from the newest point they all hold, and solves the last point again
+    if rank == 0:
+        shutil.rmtree(f"{d}/rank-00000/point-{PATH_LEN - 1:05d}")
+    resumed2 = est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1, resume_from=d)
+    out["resumed2_betas"] = resumed2.betas.numpy()
+    # a mismatched directory raises on every rank
+    errs = {}
+    for name, fn in {
+            "grid": lambda: est.path(design, a["by"], path_len=3, checkpoint_every=1, resume_from=d),
+            "foreign": lambda: est.path(design, a["by"], path_len=PATH_LEN, checkpoint_every=1,
+                                        resume_from=f"{work}/single_r{rank}"),
+            "dev_mesh": lambda: LogisticL1(DGLMNETOptions(**STREAM), mesh=make_dev_mesh(1, 4, device="cpu"),
+                                           device="cpu").path(SlabDesign(a["brows"][:, :1], a["bvals"][:, :1], n // 2),
+                                                              a["by"][:n // 2], path_len=PATH_LEN,
+                                                              resume_from=d)}.items():
+        if name == "foreign":
+            one = LogisticL1(DGLMNETOptions(**STREAM), mesh=make_dev_mesh(1, 4, device="cpu"), device="cpu")
+            try:
+                with inject_faults(FaultPlan(kill_after_points=1)):
+                    one.path(SlabDesign(a["brows"][:, :1], a["bvals"][:, :1], n // 2), a["by"][:n // 2],
+                             path_len=PATH_LEN, checkpoint_every=1, resume_from=f"{work}/single_r{rank}")
+            except InjectedKill:
+                pass
+        try:
+            fn()
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    msgs["resume_errors"] = errs
 
-# serving: the reference's saved path from a process-mesh store
-end = time.monotonic() + 240
-while not os.path.exists(f"{work}/ref_path.ready"):
-    if time.monotonic() > end:
-        raise SystemExit("the reference's path never landed")
-    time.sleep(0.2)
-store = PathStore.from_checkpoint(f"{work}/ref_path", mesh=mesh, tile=8, device="cpu")
-path = PathResult.load(f"{work}/ref_path", device="cpu")
-scorer = PathScorer(store)
-b = RequestBatcher(24, max_batch=128, dp=store.dp, pad_p_to=store.pad_p_to)
-for req, lam in requests(a["sX"].numpy(), 24, path.lambdas, hash_token):
-    b.submit(req, lam)
-batch, lams = b.drain()
-engine.host_syncs = 0
-scores, ver = scorer.score(batch, lams)
-out["serve_scores"] = scores
-inner = SlabDesign(torch.from_numpy(batch.row_idx), torch.from_numpy(batch.values), batch.batch_cap)
-sd = ShardedDesign(inner, mesh, tile=8)
-dest = LogisticL1(DGLMNETOptions(tile=8), mesh=mesh, device="cpu")
-equal = []
-for l in range(len(path)):
-    beta = torch.nn.functional.pad(path.betas[l], (0, batch.p_pad - 24))
-    ref = dest.decision_function(sd, beta=beta).numpy()[:batch.n_live]
-    got, _ = scorer.score(batch, np.full(batch.n_live, path.lambdas[l]))
-    equal.append(bool(np.array_equal(got, ref)))
-store.swap(PathResult(lambdas=path.lambdas, betas=torch.full_like(path.betas, float("nan")),
-                      nnz=path.nnz, f=path.f, n_iters=path.n_iters))
-again, ver2 = scorer.score(batch, lams)
-msgs["serve"] = dict(reads=1, equal=equal, block=list(store.snapshot.betas.shape),
-                     p_pad=store.snapshot.p_pad, version=ver, after_quarantine=ver2,
-                     quarantined=store.quarantined, rescored=bool(np.array_equal(again, scores)))
-np.savez(f"{work}/w8_r{rank}.npz", **out)
-json.dump(msgs, open(f"{work}/w8_r{rank}.json", "w"))
-print("OK rank", rank)
+    # nan-inject (the chaos drill) on the dense cell
+    est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
+    healthy = est.fit(a["bX"], a["by"], float(a["blam"]))
+    with inject_faults(FaultPlan(engine=EngineFault("margins", at_iter=3), engine_fires=1)):
+        res = est.fit(a["bX"], a["by"], float(a["blam"]))
+    nb = len(res.objective_history)
+    again = est.fit(a["bX"], a["by"], float(a["blam"]))
+    msgs["nan"] = dict(status=res.status_name, iters=res.n_iters,
+                       prefix=res.objective_history == healthy.objective_history[:nb],
+                       finite=bool(torch.isfinite(res.beta).all()),
+                       again=bool(torch.equal(again.beta, healthy.beta)), healthy_f=healthy.f)
+    out["nan_beta"] = res.beta.numpy()
+
+    # serving: the reference's saved path from a process-mesh store
+    end = time.monotonic() + 240
+    while not os.path.exists(f"{work}/ref_path.ready"):
+        if time.monotonic() > end:
+            raise SystemExit("the reference's path never landed")
+        time.sleep(0.2)
+    store = PathStore.from_checkpoint(f"{work}/ref_path", mesh=mesh, tile=8, device="cpu")
+    path = PathResult.load(f"{work}/ref_path", device="cpu")
+    scorer = PathScorer(store)
+    b = RequestBatcher(24, max_batch=128, dp=store.dp, pad_p_to=store.pad_p_to)
+    for req, lam in requests(a["sX"].numpy(), 24, path.lambdas, hash_token):
+        b.submit(req, lam)
+    batch, lams = b.drain()
+    engine.host_syncs = 0
+    scores, ver = scorer.score(batch, lams)
+    out["serve_scores"] = scores
+    inner = SlabDesign(torch.from_numpy(batch.row_idx), torch.from_numpy(batch.values), batch.batch_cap)
+    sd = ShardedDesign(inner, mesh, tile=8)
+    dest = LogisticL1(DGLMNETOptions(tile=8), mesh=mesh, device="cpu")
+    equal = []
+    for l in range(len(path)):
+        beta = torch.nn.functional.pad(path.betas[l], (0, batch.p_pad - 24))
+        ref = dest.decision_function(sd, beta=beta).numpy()[:batch.n_live]
+        got, _ = scorer.score(batch, np.full(batch.n_live, path.lambdas[l]))
+        equal.append(bool(np.array_equal(got, ref)))
+    store.swap(PathResult(lambdas=path.lambdas, betas=torch.full_like(path.betas, float("nan")),
+                          nnz=path.nnz, f=path.f, n_iters=path.n_iters))
+    again, ver2 = scorer.score(batch, lams)
+    msgs["serve"] = dict(reads=1, equal=equal, block=list(store.snapshot.betas.shape),
+                         p_pad=store.snapshot.p_pad, version=ver, after_quarantine=ver2,
+                         quarantined=store.quarantined, rescored=bool(np.array_equal(again, scores)))
+    np.savez(f"{work}/w8_r{rank}.npz", **out)
+    json.dump(msgs, open(f"{work}/w8_r{rank}.json", "w"))
+    print("OK rank", rank)
 """
 
 RANK4 = """
@@ -338,45 +339,46 @@ from repro_torch.core import engine
 from repro_torch.core.dglmnet import DGLMNETOptions
 from repro_torch.data.byfeature import to_by_feature, to_slabs
 from repro_torch.launch.mesh import (init_process_mesh, make_process_mesh,
-                                     make_production_mesh, parse_mesh)
+                                     make_production_mesh, parse_mesh, world_scope)
 
-rank, work = int(sys.argv[1]), sys.argv[2]
-a = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/inputs.npz").items()}
-flat = init_process_mesh(2, 2, backend="gloo", init_method=f"file://{work}/store4", world_size=4,
-                         rank=rank, device="cpu", timeout=timedelta(seconds=120))
-pod = make_process_mesh(1, 2, pod=2, backend="gloo", device="cpu")
-out, msgs = {}, {"pod": dict(shape=pod.shape, axes=list(pod.axis_names), examples=pod.examples,
-                             example_rank=pod.example_rank, coords=[pod.pod_rank, pod.data_rank,
-                                                                   pod.model_rank]),
-                 "flat_coords": [flat.data_rank, flat.model_rank]}
-rows, vals, _ = to_slabs(to_by_feature(a["pX"]), 2)
-for tag, mesh in (("flat", flat), ("pod", pod)):
-    est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
-    mesh.reset_stats()
-    res = est.fit(a["pX"], a["py"], float(a["plam"]))
-    out.update({f"{tag}_dense_beta": res.beta.numpy(),
-                f"{tag}_dense_hist": np.asarray(res.objective_history)})
-    msgs[f"{tag}_stats"] = {k: v[0] for k, v in mesh.stats().items()}
-    res = est.fit(SlabDesign(rows, vals, len(a["py"])), a["py"], float(a["plam"]),
-                  densify=False)
-    out.update({f"{tag}_slab_beta": res.beta.numpy(),
-                f"{tag}_slab_hist": np.asarray(res.objective_history)})
-    pts = est.path(SlabDesign(rows, vals, len(a["py"])), a["py"], path_len=3)
-    out.update({f"{tag}_path_betas": pts.betas.numpy(), f"{tag}_path_f": np.asarray(pts.f)})
-parsed = parse_mesh("2x1x2", backend="gloo", device="cpu")
-msgs["parsed"] = dict(shape=parsed.shape, ranks=parsed.ranks, kind=type(parsed).__name__)
-errs = {}
-for name, fn in {"world": lambda: parse_mesh("3x1x2", backend="gloo", device="cpu"),
-                 "multipod": lambda: make_production_mesh(multi_pod=True, backend="gloo")}.items():
-    try:
-        fn()
-        errs[name] = None
-    except ValueError as e:
-        errs[name] = str(e)
-msgs["errors"] = errs
-np.savez(f"{work}/w4_r{rank}.npz", **out)
-json.dump(msgs, open(f"{work}/w4_r{rank}.json", "w"))
-print("OK rank", rank)
+with world_scope():
+    rank, work = int(sys.argv[1]), sys.argv[2]
+    a = {k: torch.from_numpy(v) for k, v in np.load(f"{work}/inputs.npz").items()}
+    flat = init_process_mesh(2, 2, backend="gloo", init_method=f"file://{work}/store4", world_size=4,
+                             rank=rank, device="cpu", timeout=timedelta(seconds=120))
+    pod = make_process_mesh(1, 2, pod=2, backend="gloo", device="cpu")
+    out, msgs = {}, {"pod": dict(shape=pod.shape, axes=list(pod.axis_names), examples=pod.examples,
+                                 example_rank=pod.example_rank, coords=[pod.pod_rank, pod.data_rank,
+                                                                       pod.model_rank]),
+                     "flat_coords": [flat.data_rank, flat.model_rank]}
+    rows, vals, _ = to_slabs(to_by_feature(a["pX"]), 2)
+    for tag, mesh in (("flat", flat), ("pod", pod)):
+        est = LogisticL1(DGLMNETOptions(**DENSE), mesh=mesh, device="cpu")
+        mesh.reset_stats()
+        res = est.fit(a["pX"], a["py"], float(a["plam"]))
+        out.update({f"{tag}_dense_beta": res.beta.numpy(),
+                    f"{tag}_dense_hist": np.asarray(res.objective_history)})
+        msgs[f"{tag}_stats"] = {k: v[0] for k, v in mesh.stats().items()}
+        res = est.fit(SlabDesign(rows, vals, len(a["py"])), a["py"], float(a["plam"]),
+                      densify=False)
+        out.update({f"{tag}_slab_beta": res.beta.numpy(),
+                    f"{tag}_slab_hist": np.asarray(res.objective_history)})
+        pts = est.path(SlabDesign(rows, vals, len(a["py"])), a["py"], path_len=3)
+        out.update({f"{tag}_path_betas": pts.betas.numpy(), f"{tag}_path_f": np.asarray(pts.f)})
+    parsed = parse_mesh("2x1x2", backend="gloo", device="cpu")
+    msgs["parsed"] = dict(shape=parsed.shape, ranks=parsed.ranks, kind=type(parsed).__name__)
+    errs = {}
+    for name, fn in {"world": lambda: parse_mesh("3x1x2", backend="gloo", device="cpu"),
+                     "multipod": lambda: make_production_mesh(multi_pod=True, backend="gloo")}.items():
+        try:
+            fn()
+            errs[name] = None
+        except ValueError as e:
+            errs[name] = str(e)
+    msgs["errors"] = errs
+    np.savez(f"{work}/w4_r{rank}.npz", **out)
+    json.dump(msgs, open(f"{work}/w4_r{rank}.json", "w"))
+    print("OK rank", rank)
 """
 
 
@@ -445,8 +447,10 @@ def runs(tmp_path_factory):
         "ref": ([[sys.executable, "-c", _code(REFERENCE), work]],
                 _env(XLA_FLAGS="--xla_force_host_platform_device_count=8",
                      JAX_PLATFORMS="cpu")),
-        "w8": ([[sys.executable, "-c", _code(RANK8), str(r), work] for r in range(8)], rank_env),
-        "w4": ([[sys.executable, "-c", _code(RANK4), str(r), work] for r in range(4)], rank_env),
+        "w8": ([[sys.executable, "-c", _code(RANK8), str(r), work]
+                for r in range(8)], rank_env),
+        "w4": ([[sys.executable, "-c", _code(RANK4), str(r), work]
+                for r in range(4)], rank_env),
         "serve": ([launcher + ["repro_torch.launch.serve_glm", "--smoke", "--mesh", "2x2",
                                "--backend", "gloo", "--device", "cpu", "--spawn", "4",
                                "--steps", "4"]], rank_env),
